@@ -15,7 +15,13 @@ Phases, in order; any failure exits non-zero before the result line:
   6  real size: bench_e2e.make_workload's 5 Mb genome and 100 x 20 kb
      reads mapped with -t1 -xpacbio; the SAM (without @PG) must hash to
      the JAX package's digest below
-  7  no jax imported; the kernels' JSON line, then the result line
+  7  the step-mix probes P1-P4 through their entry point
+     (minialign_tpu_torch.probes.run, i.e. python -m
+     minialign_tpu_torch.probes): every case of the four JAX tools, each
+     kernel exactly equal to its plain twin (loops at 64 and 2048 steps),
+     ns/step at the tools' own counts (the step timer also at 2^17
+     steps); then the step timer at B=1024
+  8  no jax imported; the kernels' JSON line, then the result line
 
 The port never imports JAX; the digests below were taken with the JAX
 package on a CPU.
@@ -62,7 +68,17 @@ KERNELS = {
                "minialign_tpu/dp/pallas_gather.py:83"),
     "dtrace": ("minialign_tpu_torch/csrc/dtrace.cu",
                "minialign_tpu/dp/dtrace.py:66"),
+    "p1": ("minialign_tpu_torch/csrc/probe_subint32.cu",
+           "tests/tools/probe_subint32.py:15"),
+    "p2": ("minialign_tpu_torch/csrc/probe_lowprec.cu",
+           "tests/tools/probe_lowprec.py:37"),
+    "p3": ("minialign_tpu_torch/csrc/probe_bf16ops.cu",
+           "tests/tools/probe_bf16ops.py:32"),
+    "p4": ("minialign_tpu_torch/csrc/probe_wordstream.cu",
+           "tests/tools/probe_wordstream.py:26"),
 }
+MAPPER = ("fill", "gather", "dtrace")        # the CLI's kernels
+PROBES = ("p1", "p2", "p3", "p4")            # the probes' kernels
 
 
 def fail(msg):
@@ -284,7 +300,7 @@ def main():
         t0 = time.time()
         out = run_cli(cli, args + [f"{DATA}/tref.fa", f"{DATA}/treads.fq"])
         dt = time.time() - t0
-        counts = dict(_build.LAUNCHES)
+        counts = {k: _build.LAUNCHES[k] for k in MAPPER}
         if not all(counts.values()):
             fail(f"{golden}: a kernel was not launched: {counts}")
         sha, body = sam_digest(out)
@@ -319,7 +335,7 @@ def main():
     t0 = time.time()
     out = run_cli(cli, ["-t1", "-xpacbio", ref_fa, reads_fq])
     wall = time.time() - t0
-    launches = dict(_build.LAUNCHES)
+    launches = {k: _build.LAUNCHES[k] for k in MAPPER}
     sha, body = sam_digest(out)
     if sha != E2E_SHA256:
         fail(f"real-size SAM digest {sha} != JAX package's {E2E_SHA256}")
@@ -330,14 +346,53 @@ def main():
         f"({recs} records); wall {wall:.2f} s, {nbases / wall / 1e6:.3f} "
         f"Mbases/s, launches {launches} on {card}")
 
-    # ---- 7
+    # ---- 7: the probes' entry point, then the step timer at B=1024
+    from minialign_tpu_torch import probes
+    from minialign_tpu_torch.probes import lowprec
+    say("[7] probes P1-P4: python -m minialign_tpu_torch.probes")
+    _build.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rep = probes.run(device="cuda", seed=0)
+    wall = time.time() - t0
+    launches.update({k: _build.LAUNCHES[k] for k in PROBES})
+    if rep.failures:
+        fail(f"probes: {len(rep.failures)} case(s) failed: {rep.failures}")
+    if not all(launches[k] for k in PROBES):
+        fail(f"probes: a kernel was not launched: "
+             f"{ {k: launches[k] for k in PROBES} }")
+    for k in PROBES:
+        st = rep.stats[k]
+        stats[k].update(max_abs_err=st["max_abs_err"], ms=st["ms"],
+                        plain_ms=st["plain_ms"])
+        say(f"[7] {k}: {st['compared']} runs equal to the plain twin; "
+            f"kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.1f} ms in all "
+            f"(loops at 64 and 2048 steps); launches {launches[k]}")
+    say(f"[7] probes: every case equal ({wall:.1f} s) on {card}")
+    rng = np.random.default_rng(1)
+    for dt in lowprec.STEP_DTYPES:
+        x, dd = lowprec.step_inputs(rng, dt, dev, B=1024)
+        for n in (64, lowprec.STEPS):
+            got, ms = timed(torch, lambda: lowprec.step_loop(x, dd, n, dev))
+            want, pms = timed(torch, lambda: lowprec.step_timer_plain(x, dd,
+                                                                       n))
+            if not torch.equal(got, want):
+                fail(f"step timer {dt} B=1024 {n} steps: kernel != plain")
+        ns = [lowprec.step_timer(x, dd, k, dev).ns_per_step
+              for k in (lowprec.STEPS, lowprec.LONG_STEPS)]
+        say(f"[7] step timer {dt} W=64 B=1024: {ns[0]:.1f} ns/step at "
+            f"{lowprec.STEPS} steps, {ns[1]:.1f} at {lowprec.LONG_STEPS} "
+            f"(kernel equal to plain at 64 and {n} steps; at {n} steps "
+            f"kernel {ms:.3f} ms, plain {pms:.1f} ms) on {card}")
+
+    # ---- 8
     if "jax" in sys.modules:
         fail("jax was imported")
     print(card)
     print(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=src, replaces=rep,
+        dict(name=k, route="cuda", source=src, replaces=tpu,
              launches=launches[k], **stats[k])
-        for k, (src, rep) in KERNELS.items()]}))
+        for k, (src, tpu) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The sources in csrc/ have a plain C interface; nvcc compiles them into
-one shared library for sm_90a at first use, into
-minialign_tpu_torch/build/ (git-ignored), and ctypes loads it. Pointers
-and the stream go in as c_void_p. Every C entry point returns
-cudaGetLastError() after its launch and the wrappers raise on non-zero.
+The sources in csrc/ have a plain C interface; at first use nvcc
+compiles each of them for sm_90a, all at once, and links them into one
+shared library in minialign_tpu_torch/build/ (git-ignored), which
+ctypes loads. Pointers and the stream go in as c_void_p. Every C entry
+point returns cudaGetLastError() after its launch and the wrappers
+raise on non-zero.
 
 LAUNCHES counts kernel launches per kernel; each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
@@ -17,16 +18,24 @@ import ctypes
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
-SOURCES = ("fill.cu", "gather.cu", "dtrace.cu")
+SOURCES = ("fill.cu", "gather.cu", "dtrace.cu", "probe_subint32.cu",
+           "probe_lowprec.cu", "probe_bf16ops.cu", "probe_wordstream.cu")
+HEADERS = ("probe_common.cuh",)
 LIB = os.path.join(BUILD, "libminialign_cuda.so")
 ARCH = "arch=compute_90a,code=sm_90a"
+FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v")
 
-LAUNCHES = {"fill": 0, "gather": 0, "dtrace": 0}
+# the mapper's kernels, then the step-mix probes P1-P4 (probes/)
+LAUNCHES = {"fill": 0, "gather": 0, "dtrace": 0,
+            "p1": 0, "p2": 0, "p3": 0, "p4": 0}
 BUILD_LOG = ""        # nvcc's output of the last build (ptxas -v lines)
 
 _lib = None
@@ -41,6 +50,16 @@ _SIGS = {
     "gather_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "dtrace_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P,
                       _P, _P, _I, _P],
+    "p1_probe_launch": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "p2_elementwise_launch": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "p2_roll_concat_launch": [_P, _P, _I, _I, _I, _P, _P],
+    "p2_step_timer_launch": [_P, _P, _I, _I, _I, _P, _P],
+    "p3_run2_launch": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "p3_timing_launch": [_P, _I, _I, _I, _P, _P],
+    "p4_var_shift_launch": [_P, _P, _I, _P, _P],
+    "p4_div10_launch": [_P, _I, _P, _P],
+    "p4_roll_in_carry_launch": [_P, _I, _I, _P, _P],
+    "p4_stream_launch": [_P, _P, _P, _I, _I, _P, _P],
 }
 
 
@@ -53,23 +72,39 @@ def _nvcc() -> str:
                        "toolkit's bin/ on PATH)")
 
 
+def _run(cmd: list[str]) -> tuple[int, str]:
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    return r.returncode, r.stdout + r.stderr
+
+
 def build() -> str:
-    """Compile csrc/*.cu into LIB unless it is newer than every source.
-    Returns the library path; raises with nvcc's output on failure."""
+    """Compile csrc/*.cu into LIB unless it is newer than every source
+    and header: one nvcc per source, all started together, then one
+    link. Returns the library path; raises with nvcc's output on
+    failure."""
     global BUILD_LOG
     srcs = [os.path.join(CSRC, s) for s in SOURCES]
+    deps = srcs + [os.path.join(CSRC, h) for h in HEADERS]
     if os.path.exists(LIB) and os.path.getmtime(LIB) >= max(
-            os.path.getmtime(s) for s in srcs):
+            os.path.getmtime(s) for s in deps):
         return LIB
     os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp] + srcs
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, LIB)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        with ThreadPoolExecutor(len(srcs)) as ex:
+            done = list(ex.map(_run, ([nvcc, *FLAGS, "-c", src, "-o", obj]
+                                      for src, obj in zip(srcs, objs))))
+        BUILD_LOG = "".join(log for _, log in done)
+        bad = [s for s, (rc, _) in zip(SOURCES, done) if rc != 0]
+        if bad:
+            raise RuntimeError(f"nvcc failed on {bad}:\n{BUILD_LOG}")
+        so = os.path.join(tmp, "lib.so")
+        rc, log = _run([nvcc, "-shared", "-o", so] + objs)
+        BUILD_LOG += log
+        if rc != 0:
+            raise RuntimeError(f"nvcc link failed ({rc}):\n{BUILD_LOG}")
+        os.replace(so, LIB)
     return LIB
 
 

@@ -6,7 +6,9 @@ Run on a GPU machine with
 
 Fill results and walks must be identical; trace buffers over the
 blocks each problem filled itself (the kernel stops a problem at its own
-termination, the batched plain fill keeps stepping it)."""
+termination, the batched plain fill keeps stepping it). The step-mix
+probes P1-P4 (minialign_tpu_torch.probes) must equal their plain twins
+exactly, one dtype of each kind."""
 
 import io
 import os
@@ -19,6 +21,8 @@ import torch
 from minialign_tpu.params import MapParams, ScoreParams
 from minialign_tpu_torch import _build
 from minialign_tpu_torch.dp import band, cuda_fill, cuda_gather, dtrace
+from minialign_tpu_torch.probes import bf16ops, lowprec, subint32, wordstream
+from minialign_tpu_torch.probes._common import tensor
 
 pytestmark = pytest.mark.cuda
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -119,8 +123,76 @@ def test_cli_golden_on_cuda(dev, monkeypatch):
     monkeypatch.setattr(sys, "stdout", out)
     _build.reset_counts()
     assert cli.main(["-t1", f"{DATA}/tref.fa", f"{DATA}/treads.fq"]) == 0
-    assert all(n > 0 for n in _build.LAUNCHES.values()), _build.LAUNCHES
+    assert all(_build.LAUNCHES[k] > 0 for k in ("fill", "gather", "dtrace")), \
+        _build.LAUNCHES
     with open(f"{DATA}/ref_out.sam") as f:
         want = [x for x in f.read().splitlines() if not x.startswith("@PG")]
     assert [x for x in out.getvalue().splitlines()
             if not x.startswith("@PG")] == want
+
+
+# ---- the step-mix probes P1-P4
+
+
+def _same(got, want):
+    assert got.dtype == want.dtype and torch.equal(got, want), \
+        (got - want).abs().max() if got.shape == want.shape else got.shape
+
+
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("dtype", ["int8", "uint8"])
+def test_p1_kernel_matches_plain(dtype, carry, dev):
+    rng = np.random.default_rng(11)
+    for op in subint32.CARRY_OPS if carry else subint32.BINOPS:
+        x, y = subint32.inputs(rng, dtype, dev, *subint32.RANGE)
+        if carry:
+            _same(subint32.probe_carry(op, x, y, dev),
+                  subint32.probe_carry_plain(op, x, y))
+        else:
+            _same(subint32.probe(op, x, y, dev),
+                  subint32.probe_plain(op, x, y))
+
+
+@pytest.mark.parametrize("dtype", ["int16", "bfloat16", "float32"])
+def test_p2_kernels_match_plain(dtype, dev):
+    rng = np.random.default_rng(12)
+    for op in lowprec.BINOPS:
+        x, y = lowprec.inputs(rng, dtype, dev)
+        _same(lowprec.elementwise(op, x, y, dev),
+              lowprec.elementwise_plain(op, x, y))
+    x, y = lowprec.inputs(rng, dtype, dev)
+    _same(lowprec.in_carry("maximum", x, y, dev),
+          lowprec.in_carry_plain("maximum", x, y))
+    _same(lowprec.roll_concat(x, y, dev), lowprec.roll_concat_plain(x, y))
+    for B in (128, 1024):
+        x, dd = lowprec.step_inputs(rng, dtype, dev, B)
+        for n in (1, 64, 300):
+            _same(lowprec.step_loop(x, dd, n, dev),
+                  lowprec.step_timer_plain(x, dd, n))
+
+
+def test_p3_kernels_match_plain(dev):
+    rng = np.random.default_rng(13)
+    for op, _, dtype in bf16ops.OPS:
+        x, y = bf16ops.inputs(rng, dtype, dev)
+        _same(bf16ops.run2(op, x, y, dev), bf16ops.run2_plain(op, x, y))
+    for dtype in ("int32", "bfloat16"):
+        x = bf16ops.timing_input(rng, dtype, dev)
+        for n in (1, 64):
+            _same(bf16ops.timing_loop(x, n, dev), bf16ops.timing_plain(x, n))
+
+
+def test_p4_kernels_match_plain(dev):
+    rng = np.random.default_rng(14)
+    shape = wordstream.SHAPE
+    w = tensor(rng.integers(0, 2**30, shape), "int32", dev)
+    s = tensor(rng.integers(0, 12, shape), "int32", dev)
+    _same(wordstream.var_shift(w, s, dev), wordstream.var_shift_plain(w, s))
+    _same(wordstream.roll_in_carry(w, dev), wordstream.roll_in_carry_plain(w))
+    x = torch.arange(2**18, dtype=torch.int32, device=dev).reshape(-1, 128)
+    _same(wordstream.div10_magic(x, dev), wordstream.div10_magic_plain(x))
+    wb = tensor(rng.integers(0, 2**30, shape), "int32", dev)
+    d = tensor(rng.integers(0, 7, (1, shape[1])), "int32", dev)
+    for n in (1, 64, 300):
+        _same(wordstream.stream_loop(w, wb, d, n, dev),
+              wordstream.stream_timing_plain(w, wb, d, n))
