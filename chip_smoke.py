@@ -8,20 +8,27 @@ Phases, in order; any failure exits non-zero before the result line:
   1  build the kernels from csrc/ with nvcc (sm_90a)
   2  K2 gather kernel == gather_plain, byte for byte, on a 5 Mb store
   3  K1 fill kernel == fill_plain (both score models x W 16/32/64 x
-     trace on/off at B=128, ~4 kb; W=64 at 20 kb), with times
-  4  K3 traceback kernel == dtrace_plain on phase 3's trace buffers
+     trace on/off at B=128, ~2 kb; the edge cases of edge_pairs at W 16
+     and 64; a max in the last block; W=64 with the -xpacbio scores at
+     B=128 x 20 kb), with times, ns/step and the bound
+  4  K3 traceback kernel == dtrace_plain on phase 3's trace buffers,
+     with ns/move at 20 kb
   5  the goldens through the port's CLI on CUDA (ref_out, ref_pacbio,
      ref_tags), every kernel launched
   6  real size: bench_e2e.make_workload's 5 Mb genome and 100 x 20 kb
      reads mapped with -t1 -xpacbio; the SAM (without @PG) must hash to
-     the JAX package's digest below
+     the JAX package's digest below; the port's host library loaded; the
+     problems of each traced fill launch. Then phases 3-4 again at the
+     median of those launch sizes (20 kb): the kernels timed, their
+     results held to phase 3's plain ones for the same problems
   7  the step-mix probes P1-P4 through their entry point
      (minialign_tpu_torch.probes.run, i.e. python -m
      minialign_tpu_torch.probes): every case of the four JAX tools, each
      kernel exactly equal to its plain twin (loops at 64 and 2048 steps),
      ns/step at the tools' own counts (the step timer also at 2^17
      steps); then the step timer at B=1024
-  8  no jax imported; the kernels' JSON line, then the result line
+  8  neither jax nor minialign_tpu imported; the kernels' JSON line,
+     then the result line
 
 The port never imports JAX; the digests below were taken with the JAX
 package on a CPU.
@@ -90,31 +97,64 @@ def say(msg):
     print(msg, flush=True)
 
 
-def timed(torch, fn, reps=1):
-    """(result, median ms) of fn() over reps runs, timed with CUDA
-    events around each run."""
-    out, ts = None, []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = fn()
-        e1.record()
-        torch.cuda.synchronize()
-        ts.append(e0.elapsed_time(e1))
-    return out, sorted(ts)[len(ts) // 2]
+# operations a band cell costs the fill (the recurrence: 13; with the
+# trace code: 30) and a move the walk, counted from csrc/fill.cu and
+# csrc/dtrace.cu, for the kernels' bounds
+FILL_OPS_CELL = {False: 13, True: 30}
+WALK_OPS_MOVE = 20
 
 
-def mutate(np, rng, a, err=0.12):
-    """~err edits: 40% substitutions, 30% deletions, 30% insertions."""
-    r = rng.random(len(a))
-    b = np.where(r < 0.4 * err, rng.integers(0, 4, len(a)), a)
-    reps = np.where(r < 0.4 * err, 1, np.where(r < 0.7 * err, 0,
-                                               np.where(r < err, 2, 1)))
-    out = np.repeat(b, reps)
-    ins = np.cumsum(reps)[reps == 2] - 1
-    out[ins] = rng.integers(0, 4, len(ins))
-    return out
+def edge_pairs(np, rng):
+    """Problems the fill's max reduction and the walk's start must get
+    right: a tandem repeat against itself (ties everywhere), b == a, an
+    unrelated pair that X-drops in its first blocks, problems shorter
+    than W, and zero-length ones."""
+    unit = rng.integers(0, 4, 7)
+    rep = np.tile(unit, 60)
+    same = rng.integers(0, 4, 500)
+    short = rng.integers(0, 4, 20)
+    empty = np.zeros(0, np.int64)
+    return [(rep, np.tile(unit, 55)), (rep, rep.copy()),
+            (same, same.copy()),
+            (rng.integers(0, 4, 600), rng.integers(0, 4, 600)),
+            (rng.integers(0, 4, 5), rng.integers(0, 4, 9)),
+            (rng.integers(0, 4, 40), rng.integers(0, 4, 30)),
+            (short, short.copy()), (empty, rng.integers(0, 4, 50)),
+            (empty, empty)]
+
+
+def show(bd):
+    return f"bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})"
+
+
+def bound(nbytes, ops):
+    """{bound_ms, bound_by} for nbytes through HBM and ops 32-bit ops."""
+    from minialign_tpu_torch.probes._common import bound_ms
+    tb, to = bound_ms(nbytes, ops)
+    return dict(bound_ms=max(tb, to),
+                bound_by="bytes" if tb >= to else "operations")
+
+
+def fill_bound(res, alen, blen, W, trace):
+    """The fill reads each problem's characters and writes its results
+    and, traced, its own blocks of codes, dirs, iheads and rprevs."""
+    steps = res.n_steps.long()
+    B = len(steps)
+    nbytes = int(alen.long().sum() + blen.long().sum()) + 8 * B + 20 * B
+    if trace:
+        nbytes += int((steps // 32).sum()) * (32 * 16 * 4 + 12)
+    return bound(nbytes, int(steps.sum()) * W * FILL_OPS_CELL[trace])
+
+
+def walk_bound(summ):
+    """The walk reads a code word a move and the dir words of the blocks
+    it crosses, and writes its entries and summary."""
+    B = summ.shape[1]
+    s = summ.long()
+    moves = int(s[0].sum())
+    blocks = int(((s[11] + s[12] - 2).clamp(min=0) // 32 + 1).sum())
+    nbytes = 4 * moves + 4 * blocks + 16 * B + int(s[1].sum()) + 56 * B
+    return bound(nbytes, WALK_OPS_MOVE * moves)
 
 
 def sam_digest(text):
@@ -158,9 +198,10 @@ def main():
         fail(f"minialign_tpu_torch is not importable from {ROOT}: {e}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
-    from minialign_tpu.params import MapParams, ScoreParams
-    from minialign_tpu_torch import cli
+    from minialign_tpu_torch import cli, kbench, native
     from minialign_tpu_torch.dp import band, cuda_fill, cuda_gather, dtrace
+    from minialign_tpu_torch.params import MapParams, ScoreParams
+    timed = kbench.timed
     dev = torch.device("cuda")
     stats = {k: {} for k in KERNELS}
 
@@ -197,43 +238,45 @@ def main():
     wrap[8:40] = G                               # circular windows
     start[8:12] = G - rng.integers(1, 1000, 4)
     meta = (base, start, cap, seglen, wrap)
-    got, ms = timed(torch, lambda: cuda_gather.gather(store, *meta, L), 5)
+    # 40 calls a timed window: ~10-20 ms
+    got, ms = timed(torch, lambda: cuda_gather.gather(store, *meta, L), 5, 40)
     want, pms = timed(torch, lambda: cuda_gather.gather_plain(store, *meta,
                                                               L), 3)
     if not torch.equal(got, want):
         fail("gather kernel != gather_plain")
+    n_read = np.minimum(cap, L)
+    n_read = np.where(wrap > 0, n_read,
+                      np.minimum(n_read, np.maximum(seglen - start, 0)))
     stats["gather"].update(max_abs_err=int((got.int() - want.int()).abs()
-                                           .max()), ms=ms, plain_ms=pms)
+                                           .max()), ms=ms, plain_ms=pms,
+                           library_ms=None,
+                           **bound(B * L + int(n_read.sum()) + 40 * B, 0))
     say(f"[2] gather B={B} L={L}: equal; kernel {ms:.3f} ms, plain "
         f"{pms:.3f} ms ({B * L / ms / 1e6:.2f} GB/s kernel) on {card}")
 
     # ---- 3: K1 fill; 4: K3 walk on its trace buffers
     pr = {"affine": MapParams().score,
-          "combined": ScoreParams(matrix=tuple(
-              2 if (i & 3) == (i >> 2) else -4 for i in range(16)),
-              gi=4, ge=2, gfa=3, gfb=3, xdrop=50)}   # the -xpacbio scores
+          "combined": kbench.combined_scores(ScoreParams)}   # -xpacbio's
+
+    def on_dev(xs):
+        return [torch.from_numpy(x).to(dev) for x in xs]
 
     def pairs(seed, B, n):
-        rng = np.random.default_rng(seed)
-        a = [rng.integers(0, 4, int(rng.normal(n, n * 0.05)))
-             for _ in range(B)]
-        b = [mutate(np, rng, s) for s in a]
-        ab, alen = band.pad_codes(a)
-        bb, blen = band.pad_codes(b)
-        return [torch.from_numpy(x).to(dev) for x in (ab, alen, bb, blen)]
+        return on_dev(kbench.pairs(band, seed, B, n))
 
     err = {"fill": 0, "dtrace": 0}
 
-    def check_fill(p, W, trace, args, reps=1):
-        nb = band.max_blocks_for(args[1].cpu().numpy(),
-                                 args[3].cpu().numpy())
-        got, ms = timed(torch, lambda: cuda_fill.fill_cuda(
-            p, W, nb, trace, *args), reps)
-        want, pms = timed(torch, lambda: band.fill_plain(
-            p, W, nb, trace, *args))
+    def same_fill(W, trace, got, want, rows=None):
+        """The kernel's results equal the plain ones (for the first
+        `rows` problems of `want`: no batch-wide n_blocks then), trace
+        words over each problem's own blocks."""
         rk, rp = (got[0], want[0]) if trace else (got, want)
-        for f in ("max_score", "max_i", "max_j", "n_steps", "n_blocks"):
-            d = int((getattr(rk, f) - getattr(rp, f)).abs().max())
+        n = len(rk.n_steps)
+        fields = ("max_score", "max_i", "max_j", "n_steps") + (
+            () if rows else ("n_blocks",))
+        for f in fields:
+            xk, xp = getattr(rk, f), getattr(rp, f)
+            d = int((xk - (xp[:n] if rows else xp)).abs().max())
             err["fill"] = max(err["fill"], d)
             if d:
                 fail(f"fill W={W} trace={trace}: {f} differs by {d}")
@@ -241,57 +284,106 @@ def main():
             own = (rk.n_steps // band.BLK).tolist()
             for f in ("masks", "dirs", "iheads", "rprevs"):
                 xk, xp = getattr(got[1], f), getattr(want[1], f)
-                for k, n in enumerate(own):
-                    if not torch.equal(xk[k, :n], xp[k, :n]):
+                for k, nk in enumerate(own):
+                    if not torch.equal(xk[k, :nk], xp[k, :nk]):
                         fail(f"fill W={W}: trace {f} differs, problem {k}")
-        return got, ms, pms
+
+    def check_fill(p, W, trace, args, reps=1, nb=None):
+        nb = nb or band.max_blocks_for(args[1].cpu().numpy(),
+                                       args[3].cpu().numpy())
+        run = lambda: cuda_fill.fill_cuda(p, W, nb, trace, *args)  # noqa
+        if reps > 1:
+            run()                          # warm-up: allocations
+        got, ms = timed(torch, run, reps, kbench.CALLS if reps > 1 else 1)
+        want, pms = timed(torch, lambda: band.fill_plain(
+            p, W, nb, trace, *args))
+        same_fill(W, trace, got, want)
+        return got, want, ms, pms
+
+    def walk_args(res, bufs):
+        return (bufs.masks, bufs.dirs, bufs.iheads, res.max_score,
+                res.max_i, res.max_j)
 
     def check_walk(p, W, res, bufs, reps=1):
-        walk = (bufs.masks, bufs.dirs, bufs.iheads, res.max_score,
-                res.max_i, res.max_j)
+        walk = walk_args(res, bufs)
+        if reps > 1:
+            dtrace.dtrace(p, W, *walk)     # warm-up: allocations
         (rk, sk), ms = timed(torch, lambda: dtrace.dtrace(p, W, *walk),
-                             reps)
+                             reps, kbench.CALLS if reps > 1 else 1)
         (rp, sp), pms = timed(torch, lambda: dtrace.dtrace_plain(
             p, W, *walk))
         err["dtrace"] = max(err["dtrace"], int((sk - sp).abs().max()))
         if not (torch.equal(sk, sp) and torch.equal(rk, rp)):
             fail(f"dtrace W={W}: kernel != dtrace_plain")
-        bad = int(sk[dtrace.SUMMARY_ROWS.index("bad")].sum())
-        return ms, pms, bad
+        return (rk, sk), (rp, sp), ms, pms
 
     t0 = time.time()
     for pname, p in pr.items():
         for W in (16, 32, 64):
-            args = pairs(W, 128, 4000)
+            args = pairs(W, 128, 2000)
             for trace in (False, True):
-                got, ms, pms = check_fill(p, W, trace, args)
+                got, _, ms, pms = check_fill(p, W, trace, args)
                 if trace:
                     check_walk(p, W, *got)
     say(f"[3/4] fill and walk equal to plain: 2 models x W 16/32/64 x "
-        f"trace on/off, B=128, ~4 kb ({time.time() - t0:.0f} s)")
+        f"trace on/off, B=128, ~2 kb ({time.time() - t0:.0f} s)")
 
-    args = pairs(7, 128, 20000)
-    for trace in (False, True):
-        got, ms, pms = check_fill(pr["affine"], 64, trace, args, reps=3)
-        res = got[0] if trace else got
-        cells = int(res.n_steps.sum()) * 64
-        say(f"[3] fill W=64 affine B=128 L=20kb trace={trace}: equal; "
-            f"kernel {ms:.2f} ms ({cells / ms / 1e6:.1f} GCUPS), plain "
-            f"{pms:.1f} ms ({cells / pms / 1e6:.3f} GCUPS) on {card}")
-        if trace:
-            stats["fill"].update(ms=ms, plain_ms=pms)
-            wms, wpms, bad = check_walk(pr["affine"], 64, *got, reps=3)
-            stats["dtrace"].update(ms=wms, plain_ms=wpms)
-            say(f"[4] walk W=64 B=128 L=20kb: equal ({bad} out of band); "
-                f"kernel {wms:.2f} ms, plain {wpms:.1f} ms on {card}")
-    got, ms, pms = check_fill(pr["combined"], 64, True, args, reps=3)
-    cells = int(got[0].n_steps.sum()) * 64
-    say(f"[3] fill W=64 combined (-xpacbio scores) B=128 L=20kb trace=True:"
-        f" equal; kernel {ms:.2f} ms ({cells / ms / 1e6:.1f} GCUPS), plain "
-        f"{pms:.1f} ms on {card}")
-    stats["fill"]["max_abs_err"] = err["fill"]
-    stats["dtrace"]["max_abs_err"] = err["dtrace"]
-    del got, args, store
+    t0 = time.time()
+    rng = np.random.default_rng(5)
+    edge = list(zip(*edge_pairs(np, rng)))
+    args = on_dev((*band.pad_codes(edge[0]), *band.pad_codes(edge[1])))
+    for pname, p in pr.items():
+        for W in (16, 64):
+            for trace in (False, True):
+                got, _, _, _ = check_fill(p, W, trace, args)
+                if trace:
+                    check_walk(p, W, *got)
+    # a == b with the block budget ending in the block of the max
+    x = rng.integers(0, 4, 700)
+    args = on_dev((*band.pad_codes([x]), *band.pad_codes([x])))
+    nb = (2 * len(x) - 2) // band.BLK + 1
+    for W in (16, 64):
+        got, _, _, _ = check_fill(pr["affine"], W, True, args, nb=nb)
+        res = got[0]
+        pp = int(res.max_i[0] + res.max_j[0]) - 2
+        if int(res.max_i[0]) != len(x) or pp // band.BLK != nb - 1 or \
+                int(res.n_steps[0]) != nb * band.BLK:
+            fail(f"fill W={W}: the max is not in the last block "
+                 f"({res.max_i[0]}, {res.max_j[0]}, {res.n_steps[0]})")
+        check_walk(pr["affine"], W, *got)
+    say(f"[3/4] fill and walk equal to plain on the edge cases (tandem "
+        f"repeat, b == a, X-drop at once, shorter than W, empty; 2 models "
+        f"x W 16/64 x trace on/off) and on a max in the last block "
+        f"({time.time() - t0:.0f} s)")
+
+    p = pr["combined"]
+    args20 = pairs(7, 128, 20000)
+    got, _, ms, pms = check_fill(p, 64, False, args20, reps=3)
+    cells = int(got.n_steps.sum()) * 64
+    mx = int(got.n_steps.max())
+    say(f"[3] fill W=64 -xpacbio scores B=128 L=20kb trace=False: equal; "
+        f"kernel {ms:.2f} ms ({cells / ms / 1e6:.1f} GCUPS, "
+        f"{ms * 1e6 / mx:.1f} ns/step over {mx} steps), plain {pms:.1f} ms; "
+        f"{show(fill_bound(got, args20[1], args20[3], 64, False))} on {card}")
+    got, want20, ms, pms = check_fill(p, 64, True, args20, reps=3)
+    res = got[0]
+    cells = int(res.n_steps.sum()) * 64
+    mx = int(res.n_steps.max())
+    stats["fill"].update(ms=ms, plain_ms=pms, library_ms=None,
+                         **fill_bound(res, args20[1], args20[3], 64, True))
+    say(f"[3] fill W=64 -xpacbio scores B=128 L=20kb trace=True: equal; "
+        f"kernel {ms:.2f} ms ({cells / ms / 1e6:.1f} GCUPS, "
+        f"{ms * 1e6 / mx:.1f} ns/step over {mx} steps), plain {pms:.1f} ms; "
+        f"{show(stats['fill'])} on {card}")
+    (rk, sk), plain20, wms, wpms = check_walk(p, 64, *got, reps=3)
+    moves = int(sk[0].max())
+    bad = int(sk[dtrace.SUMMARY_ROWS.index("bad")].sum())
+    stats["dtrace"].update(ms=wms, plain_ms=wpms, library_ms=None,
+                           **walk_bound(sk))
+    say(f"[4] walk W=64 B=128 L=20kb: equal ({bad} out of band); kernel "
+        f"{wms:.2f} ms ({wms * 1e6 / moves:.1f} ns/move over {moves} moves),"
+        f" plain {wpms:.1f} ms; {show(stats['dtrace'])} on {card}")
+    del got, rk, sk, args, store
 
     # ---- 5: goldens through the CLI on CUDA
     os.environ["MINIALIGN_TORCH_DEVICE"] = "cuda"
@@ -341,10 +433,45 @@ def main():
         fail(f"real-size SAM digest {sha} != JAX package's {E2E_SHA256}")
     if not all(launches.values()):
         fail(f"real size: a kernel was not launched: {launches}")
+    if not native.available():
+        fail("the port's host library (csrc/host) did not load")
+    batches = sorted(_build.TRACED_FILL_B)
     recs = sum(1 for line in body.splitlines() if not line.startswith("@"))
     say(f"[6] real size -t1 -xpacbio: SAM identical to the JAX package's "
         f"({recs} records); wall {wall:.2f} s, {nbases / wall / 1e6:.3f} "
-        f"Mbases/s, launches {launches} on {card}")
+        f"Mbases/s, launches {launches}, host library loaded, problems per "
+        f"traced fill launch {batches} on {card}")
+
+    # ---- 3/4 again at the E2E run's launch size
+    if not batches:
+        fail("real size: no traced fill launch")
+    Bs = batches[len(batches) // 2]
+    sub20 = [x[:Bs] for x in args20]
+    nb = band.max_blocks_for(sub20[1].cpu().numpy(), sub20[3].cpu().numpy())
+    fill_s = lambda: cuda_fill.fill_cuda(p, 64, nb, True, *sub20)  # noqa
+    timed(torch, fill_s)                                     # warm-up
+    got, ms = timed(torch, fill_s, 3, kbench.CALLS)
+    same_fill(64, True, got, want20, rows=Bs)
+    res = got[0]
+    mx = int(res.n_steps.max())
+    cells = int(res.n_steps.sum()) * 64
+    (rk, sk), wms = timed(torch, lambda: dtrace.dtrace(
+        p, 64, *walk_args(*got)), 3, kbench.CALLS)
+    rp, sp = plain20
+    if not (torch.equal(sk[:13], sp[:13, :Bs]) and
+            torch.equal(rk, rp[:Bs, :rk.shape[1]])):
+        fail(f"dtrace W=64 B={Bs}: kernel != dtrace_plain's rows")
+    moves = int(sk[0].max())
+    say(f"[3/4] at the E2E launch size B={Bs} (median of {len(batches)} "
+        f"traced launches), W=64 L=20kb, equal to the plain rows: fill "
+        f"trace=True {ms:.2f} ms ({cells / ms / 1e6:.1f} GCUPS, "
+        f"{ms * 1e6 / mx:.1f} ns/step over {mx} steps; "
+        f"{show(fill_bound(res, sub20[1], sub20[3], 64, True))}), walk "
+        f"{wms:.2f} ms ({wms * 1e6 / moves:.1f} ns/move over {moves} moves;"
+        f" {show(walk_bound(sk))}) on {card}")
+    stats["fill"]["max_abs_err"] = err["fill"]
+    stats["dtrace"]["max_abs_err"] = err["dtrace"]
+    del got, rk, sk, want20, plain20, args20
 
     # ---- 7: the probes' entry point, then the step timer at B=1024
     from minialign_tpu_torch import probes
@@ -363,11 +490,20 @@ def main():
              f"{ {k: launches[k] for k in PROBES} }")
     for k in PROBES:
         st = rep.stats[k]
-        stats[k].update(max_abs_err=st["max_abs_err"], ms=st["ms"],
-                        plain_ms=st["plain_ms"])
+        lib = st["library_ms"] if st["library_cases"] else None
+        stats[k].update(
+            max_abs_err=st["max_abs_err"], ms=st["ms"],
+            plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            bound_by="bytes" if st["bound_bytes_ms"] >= st["bound_ops_ms"]
+            else "operations", library_ms=lib)
+        libs = (f"one PyTorch call {lib:.3f} ms against the kernel's "
+                f"{st['library_kernel_ms']:.3f} ms on the "
+                f"{st['library_cases']} cases that have one") if lib else \
+            "no case is one PyTorch call"
         say(f"[7] {k}: {st['compared']} runs equal to the plain twin; "
-            f"kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.1f} ms in all "
-            f"(loops at 64 and 2048 steps); launches {launches[k]}")
+            f"kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.1f} ms, "
+            f"{show(stats[k])} in all (loops at 64 and 2048 steps); {libs}; "
+            f"launches {launches[k]}")
     say(f"[7] probes: every case equal ({wall:.1f} s) on {card}")
     rng = np.random.default_rng(1)
     for dt in lowprec.STEP_DTYPES:
@@ -386,8 +522,10 @@ def main():
             f"kernel {ms:.3f} ms, plain {pms:.1f} ms) on {card}")
 
     # ---- 8
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "minialign_tpu"))
+    if bad:
+        fail(f"imported {bad}")
     print(card)
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=tpu,

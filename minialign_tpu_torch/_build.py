@@ -9,7 +9,9 @@ raise on non-zero.
 
 LAUNCHES counts kernel launches per kernel; each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels. TRACED_FILL_B lists the
+problems of each traced fill launch (the launch size the fill and walk
+kernels see on the main path).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # the mapper's kernels, then the step-mix probes P1-P4 (probes/)
 LAUNCHES = {"fill": 0, "gather": 0, "dtrace": 0,
             "p1": 0, "p2": 0, "p3": 0, "p4": 0}
+TRACED_FILL_B: list[int] = []
 BUILD_LOG = ""        # nvcc's output of the last build (ptxas -v lines)
 
 _lib = None
@@ -130,10 +133,16 @@ def count(kernel: str) -> None:
         LAUNCHES[kernel] += 1
 
 
+def count_traced_fill(batch: int) -> None:
+    with _lock:
+        TRACED_FILL_B.append(batch)
+
+
 def reset_counts() -> None:
     with _lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        TRACED_FILL_B.clear()
 
 
 def check(lib, rc: int, what: str) -> None:

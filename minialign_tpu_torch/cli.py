@@ -8,11 +8,11 @@ Usage mirrors the reference:
     minialign-tpu [options] -d index.mai ref.fa           (build index)
     minialign-tpu [options] index.mai reads.fq > out.sam  (map w/ index)
 
-Carried from minialign_tpu/cli.py for the port, with its imports
-changed and three parts of `main` left out: the JAX device-mesh probe,
-the worker processes behind -tN (here -tN is the in-process threaded
-_map_block pipeline) and the "Build: tpu" tag. The device comes from
-$MINIALIGN_TORCH_DEVICE (default cuda; see device.py).
+Carried from the JAX package's minialign_tpu/cli.py for the port, with
+its imports changed and three parts of `main` left out: the JAX
+device-mesh probe, the worker processes behind -tN (here -tN is the
+in-process threaded _map_block pipeline) and the "Build: tpu" tag. The
+device comes from $MINIALIGN_TORCH_DEVICE (default cuda; see device.py).
 """
 
 from __future__ import annotations
@@ -21,18 +21,16 @@ import dataclasses
 import sys
 import time
 
-from minialign_tpu.index.build import build_index, load_blocks, save_blocks
-from minialign_tpu.io import bseq
-from minialign_tpu.params import (FMT_BLAST6, FMT_MAF, FMT_PAF, FMT_SAM,
-                                  MM_AVA, MM_COMP, MM_OMIT_REP, IndexParams,
-                                  MapParams, ScoreParams, TAG_AS, TAG_CG,
-                                  TAG_CO, TAG_ID, TAG_IH, TAG_MD, TAG_NH,
-                                  TAG_NM, TAG_RG, TAG_SA, TAG_SQ, TAG_XS)
-
 from . import __version__
 from .device import env_device
 from .extend import FillEngine
+from .index.build import build_index, load_blocks, save_blocks
+from .io import bseq
 from .io.sam import Blast6Writer, MafWriter, PafWriter, SamWriter
+from .params import (FMT_BLAST6, FMT_MAF, FMT_PAF, FMT_SAM, MM_AVA, MM_COMP,
+                     MM_OMIT_REP, IndexParams, MapParams, ScoreParams, TAG_AS,
+                     TAG_CG, TAG_CO, TAG_ID, TAG_IH, TAG_MD, TAG_NH, TAG_NM,
+                     TAG_RG, TAG_SA, TAG_SQ, TAG_XS)
 from .pipeline import align_batch
 
 # preset tree (minialign.c:5848-5891)
@@ -692,7 +690,7 @@ def _map_block(o: Opts, log, wr, engine, mp, mi, queries: list,
 
 
 def main(argv=None) -> int:
-    from minialign_tpu import native as _native
+    from . import native as _native
     _native.tune_malloc()
     argv = list(sys.argv[1:] if argv is None else argv)
     o = Opts(arg_line="minialign-tpu " + " ".join(argv))

@@ -5,24 +5,54 @@
 // minialign_tpu_torch/dp/band.py:fill_plain, bit for bit.
 //
 // Band geometry: lane q of the band at anti-diagonal step p holds cell
-// (i, j) = (ihead - q, p + 2 - ihead + q). A warp holds the W lanes of
-// one problem: W=64 gives thread t lanes t and t+32, W=32 lane t, W=16
-// lane t on threads 0-15 (16-31 idle). The one-lane rolls of the band
-// (roll_q in band.py) are __shfl_up/down_sync with the floor rolled in;
-// the step max is a butterfly reduction that keeps the lowest lane on
-// ties. Characters are read straight from the gathered (B, L) int8 rows:
-// a[i-1] and b[j-1], NCODE outside the row.
+// (i, j) = (ihead - q, p + 2 - ihead + q); its characters are a[i - 1]
+// and b[j - 1], NCODE outside the row. Thread t of the problem's warp
+// holds lanes NL t .. NL t + NL - 1 (NL = 2 at W = 64, else 1; at W = 16
+// threads 16-31 idle at the floor), so a one-lane roll of the band
+// (roll_q in band.py) is one shuffle plus register moves.
 //
-// What bounds it: a chain of dependent shuffles per step (direction
-// broadcast -> lane roll -> max) with one warp per problem, i.e. latency,
-// not bytes or arithmetic. The kernel keeps all band state in registers,
-// reads 2 bytes a lane a step (L1-resident rows), and writes 64 bytes of
-// cell codes a step in trace mode, coalesced by threads 0-15. Many
-// problems in flight (one warp each, 4 per block) hide the latency.
+// What bounds it: one problem's serial chain of steps. The engine groups
+// requests by length, so a traced launch holds a few problems and the
+// kernel's time is one problem's step latency times its ~30-40 k steps;
+// bytes (2 characters a lane a step, 64 code bytes a step) and
+// operations (~30 integer ops a cell) are far below the card's rates.
+// The first version's step took ~850-1,000 cycles: global character
+// loads, a 10-shuffle max butterfly and rolls issued after the direction
+// was known, all on the chain. Here a step takes ~245-275 cycles traced
+// and ~170-195 untraced on an H100, issue-bound: one warp issues the step's
+// ~190 instructions in order, with little else to hide their latency.
+// The design:
+// - Characters come from shared memory. At each 32-step block start the
+//   warp stores the W + 64 bases of a and of b that the band can touch in
+//   this block (loaded into registers during the previous block, so the
+//   global loads are off the chain), and the substitution scores of both
+//   candidate cells of the next step are looked up as soon as the
+//   direction of this step is known.
+// - The step max leaves the step: each thread keeps its best cell (value,
+//   first step, row) with strict >, and one warp reduction at the end
+//   orders them by value descending, step ascending, lane ascending, which
+//   is "the first step whose max beats gmax (init 0), lowest lane".
+// - The X-drop accumulator stays on the thread that holds the center lane
+//   W/2 and is broadcast once a block, for the test at the block end.
+// - Both candidate rolls of S, E and F are issued with the two edge
+//   shuffles that decide the direction, then selected; the rolls of the
+//   previous S (for the diagonal source) are the ones the previous step
+//   already made. A step has 6 shuffles, all independent.
+// - A block whose start has every lane at i >= 1 and j >= 1 (the band has
+//   left the first row and column; i and j never decrease) runs a bulk
+//   step with no boundary or ramp-in code.
+// - The max terms use the DPX instructions (__viaddmax_s32, __vimax3_s32).
+// - The step loop is unrolled by 4, so that a step's trace code, best
+//   cell and drop overlap the next step's shuffles.
+// - Trace codes go to shared memory a byte a lane; at the block end the
+//   warp packs them into the JAX layout with coalesced 128-byte stores.
+// - One warp per thread block, so the problems of a small launch spread
+//   over the SMs.
 //
 // Trace layout (the JAX package's, unchanged): masks[b][blk][s][r] holds
 // the 6-bit codes of lanes r + 16 f at bits [8 f, 8 f + 6).
 
+#include <climits>
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
@@ -33,7 +63,6 @@ constexpr int BLK = 32;
 constexpr int NCODE = 4;
 constexpr int TAIL_N = 96;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 4;   // problems per block
 
 struct FillParams {
   int sub[25];   // sub[b * 5 + a]: query base b against ref base a
@@ -41,233 +70,334 @@ struct FillParams {
 };
 
 template <int W>
-struct Lanes {
-  static constexpr int NL = W == 64 ? 2 : 1;
+struct Geo {
+  static constexpr int NL = W == 64 ? 2 : 1;       // lanes a thread
+  static constexpr int NT = W / NL;                // threads that hold lanes
+  static constexpr int WIN = W + 64;               // bases a side a block
+  static constexpr int NWIN = (WIN + 31) / 32;     // of them a thread loads
+  static constexpr int C = W / 2;                  // X-drop center lane
+  static constexpr int TC = C / NL, KC = C % NL;   // its thread and slot
+};
+
+template <int W>
+struct Smem {
+  int sub[25];
+  int8_t sa[Geo<W>::WIN];    // a[abase + x]
+  int8_t sb5[Geo<W>::WIN];   // 5 * b[bbase + x]
+  uint8_t code[BLK * W];     // the block's cell codes: [s][lane]
+};
+
+template <int W>
+struct Band {
+  static constexpr int NL = Geo<W>::NL;
+  int S[NL], Sp[NL], Spu[NL], Spd[NL], E[NL], F[NL];
+  int scd[NL], scr[NL];      // this step's scores: down / right cell
+  int ihead, rprev, p;
+  int bv, bp, bi;            // the thread's best cell: value, step, i
+  int cdrop;                 // valid on thread TC
 };
 
 // out[q] = x[q + 1], fill at q = W - 1
 template <int W>
 __device__ __forceinline__ void roll_up(const int* x, int* out, int fill,
                                         int t) {
-  if constexpr (W == 64) {
-    int v0 = __shfl_down_sync(FULL, x[0], 1);
-    int v1 = __shfl_down_sync(FULL, x[1], 1);
-    int w = __shfl_sync(FULL, x[1], 0);
-    out[0] = t == 31 ? w : v0;
-    out[1] = t == 31 ? fill : v1;
-  } else {
-    int v = __shfl_down_sync(FULL, x[0], 1);
-    out[0] = t >= W - 1 ? fill : v;
-  }
+  constexpr int NL = Geo<W>::NL;
+  const int v = __shfl_down_sync(FULL, x[0], 1);
+#pragma unroll
+  for (int k = 0; k + 1 < NL; ++k) out[k] = x[k + 1];
+  out[NL - 1] = t >= Geo<W>::NT - 1 ? fill : v;
 }
 
 // out[q] = x[q - 1], fill at q = 0
 template <int W>
 __device__ __forceinline__ void roll_dn(const int* x, int* out, int fill,
                                         int t) {
-  if constexpr (W == 64) {
-    int v0 = __shfl_up_sync(FULL, x[0], 1);
-    int v1 = __shfl_up_sync(FULL, x[1], 1);
-    int w = __shfl_sync(FULL, x[0], 31);
-    out[0] = t == 0 ? fill : v0;
-    out[1] = t == 0 ? w : v1;
-  } else {
-    int v = __shfl_up_sync(FULL, x[0], 1);
-    out[0] = t == 0 ? fill : v;
+  constexpr int NL = Geo<W>::NL;
+  const int v = __shfl_up_sync(FULL, x[NL - 1], 1);
+#pragma unroll
+  for (int k = NL - 1; k > 0; --k) out[k] = x[k - 1];
+  out[0] = t == 0 ? fill : v;
+}
+
+// The substitution scores of both cells a lane can take at the step
+// from (ihead, p): down keeps ihead, right takes ihead + 1.
+template <int W>
+__device__ __forceinline__ void scores(const Smem<W>& sm, int ihead, int p,
+                                       int abase, int bbase, const int* q,
+                                       int* scd, int* scr) {
+#pragma unroll
+  for (int k = 0; k < Geo<W>::NL; ++k) {
+    const int ad = ihead - q[k] - 1 - abase;
+    const int bd = p + 2 - ihead + q[k] - bbase;
+    scd[k] = sm.sub[sm.sb5[bd] + sm.sa[ad]];
+    scr[k] = sm.sub[sm.sb5[bd - 1] + sm.sa[ad + 1]];
   }
 }
 
+// row[base + x] for this thread's x = t + 32 m, NCODE outside the row
+template <int W>
+__device__ __forceinline__ void load_window(const int8_t* __restrict__ row,
+                                            int L, int base, int t,
+                                            int* r) {
+#pragma unroll
+  for (int m = 0; m < Geo<W>::NWIN; ++m) {
+    const int x = t + 32 * m, idx = base + x;
+    r[m] = (x < Geo<W>::WIN && idx >= 0 && idx < L) ? __ldg(row + idx)
+                                                      : NCODE;
+  }
+}
+
+template <int W, bool TRACE, bool BULK>
+__device__ __forceinline__ void step(Band<W>& st, Smem<W>& sm,
+                                     const FillParams& P, int t,
+                                     const int* q, int s, int abase,
+                                     int bbase, uint32_t& dirbits) {
+  using G = Geo<W>;
+  constexpr int NL = G::NL;
+  const int fl = P.floor_, gi = P.gi, ge = P.ge;
+  const int gfa = P.gfa_eff, gfb = P.gfb_eff;
+
+  // every roll the step may need, issued with the direction's shuffles
+  int Su[NL], Sdn[NL], Eu[NL], Fd[NL];
+  roll_up<W>(st.S, Su, fl, t);
+  roll_dn<W>(st.S, Sdn, fl, t);
+  roll_up<W>(st.E, Eu, fl, t);
+  roll_dn<W>(st.F, Fd, fl, t);
+  const int s0 = __shfl_sync(FULL, st.S[0], 0);
+  const int sW = __shfl_sync(FULL, st.S[NL - 1], G::NT - 1);
+  // direction: down iff S[W-1] > S[0], alternating during ramp-in
+  bool down = sW > s0;
+  if constexpr (!BULK) {
+    const bool edge_ok =
+        (st.ihead - (W - 1) >= 0) && (st.p + 2 - st.ihead >= 0);
+    if (!edge_ok) down = ((st.p + 1) & 1) == 1;
+  }
+  const int ihn = st.ihead + (down ? 0 : 1);
+  const int pn = st.p + 1;
+  int nscd[NL], nscr[NL];
+  if (s + 1 < BLK) scores<W>(sm, ihn, pn, abase, bbase, q, nscd, nscr);
+
+  int Sn[NL], En[NL], Fn[NL];
+  uint32_t cw = 0;
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    const int SE = down ? Su[k] : st.S[k];
+    const int EE = down ? Eu[k] : st.E[k];
+    const int SF = down ? st.S[k] : Sdn[k];
+    const int FF = down ? st.F[k] : Fd[k];
+    const int Sg = down ? (st.rprev ? st.Sp[k] : st.Spu[k])
+                        : (st.rprev ? st.Spd[k] : st.Sp[k]);
+    const int sc = down ? st.scd[k] : st.scr[k];
+    int e = __viaddmax_s32(SE, -gi, EE) - ge;
+    int f = __viaddmax_s32(SF, -gi, FF) - ge;
+    int sn = __vimax3_s32(Sg + sc, e, SE - gfb);
+    sn = max(__vimax3_s32(sn, f, SF - gfa), fl);
+    if constexpr (TRACE) {
+      const uint32_t code = (uint32_t)(sn == SF - gfa) |
+                            ((uint32_t)(sn == f) << 1) |
+                            ((uint32_t)(sn == SE - gfb) << 2) |
+                            ((uint32_t)(sn == e) << 3) |
+                            ((uint32_t)(sn - gi >= f) << 4) |
+                            ((uint32_t)(sn - gi >= e) << 5);
+      cw |= code << (8 * k);
+    }
+    int cand = sn;
+    const int i = ihn - q[k];
+    if constexpr (!BULK) {
+      // true boundary values on the first row / column
+      const int j = pn + 2 - i;
+      int gaj = -(j > 0 ? gi : 0) - ge * j;
+      int gbi = -(i > 0 ? gi : 0) - ge * i;
+      if (P.model == 2) {
+        gaj = max(gaj, -P.gfa * j);
+        gbi = max(gbi, -P.gfb * i);
+      }
+      gaj = max(gaj, fl);
+      gbi = max(gbi, fl);
+      const bool on_i0 = i == 0 && j >= 0;
+      const bool on_j0 = j == 0 && i >= 0;
+      const bool inv = i < 0 || j < 0;
+      if (on_i0) sn = gaj;
+      if (on_j0) sn = gbi;
+      if (inv) sn = fl;
+      if (on_j0) e = gbi;
+      if (on_i0 || inv) e = fl;
+      if (on_i0) f = gaj;
+      if (on_j0 || inv) f = fl;
+      if (on_i0 || on_j0 || inv) cand = fl;
+    }
+    if (W == 16 && t >= 16) sn = e = f = cand = fl;   // idle half-warp
+    if (cand > st.bv) {
+      st.bv = cand;
+      st.bp = pn;
+      st.bi = i;
+    }
+    Sn[k] = sn;
+    En[k] = e;
+    Fn[k] = f;
+  }
+  // saturating int8 center-lane drop accumulator (gaba.c:1650)
+  st.cdrop = min(max(st.cdrop - (Sn[G::KC] - st.S[G::KC]), -128), 127);
+  if constexpr (TRACE) {
+    if (t < G::NT) {
+      if constexpr (NL == 2)
+        *reinterpret_cast<uint16_t*>(&sm.code[s * W + 2 * t]) =
+            (uint16_t)cw;
+      else
+        sm.code[s * W + t] = (uint8_t)cw;
+    }
+    dirbits |= (down ? 1u : 0u) << s;
+  }
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    st.Sp[k] = st.S[k];
+    st.Spu[k] = Su[k];
+    st.Spd[k] = Sdn[k];
+    st.S[k] = Sn[k];
+    st.E[k] = En[k];
+    st.F[k] = Fn[k];
+    if (s + 1 < BLK) {
+      st.scd[k] = nscd[k];
+      st.scr[k] = nscr[k];
+    }
+  }
+  st.ihead = ihn;
+  st.rprev = down ? 0 : 1;
+  st.p = pn;
+}
+
 template <int W, bool TRACE>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(32)
 fill_kernel(FillParams P, const int8_t* __restrict__ a,
             const int32_t* __restrict__ alen, int LA,
             const int8_t* __restrict__ b, const int32_t* __restrict__ blen,
-            int LB, int B, int max_blocks, int32_t* __restrict__ o_score,
+            int LB, int max_blocks, int32_t* __restrict__ o_score,
             int32_t* __restrict__ o_i, int32_t* __restrict__ o_j,
             int32_t* __restrict__ o_steps, int32_t* __restrict__ o_blocks,
             uint32_t* __restrict__ masks, uint32_t* __restrict__ dirs,
             int32_t* __restrict__ iheads, int32_t* __restrict__ rprevs) {
-  constexpr int NL = Lanes<W>::NL;
-  constexpr int c = W / 2;
-  __shared__ int sub[25];
-  if (threadIdx.x < 25) sub[threadIdx.x] = P.sub[threadIdx.x];
-  __syncthreads();
-
-  const int t = threadIdx.x & 31;
-  const int prob = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (prob >= B) return;  // warp-uniform
+  using G = Geo<W>;
+  constexpr int NL = G::NL;
+  constexpr int c = G::C;
+  __shared__ Smem<W> sm;
+  const int t = threadIdx.x;
+  const int prob = blockIdx.x;
+  if (t < 25) sm.sub[t] = P.sub[t];
   const int8_t* arow = a + (size_t)prob * LA;
   const int8_t* brow = b + (size_t)prob * LB;
   const int fl = P.floor_;
-  const int gi = P.gi, ge = P.ge, gfa = P.gfa_eff, gfb = P.gfb_eff;
 
-  int q[NL];
-  for (int k = 0; k < NL; ++k) q[k] = t + 32 * k;
+  int q[NL];   // the thread's lanes (idle threads alias lane W - 1)
+#pragma unroll
+  for (int k = 0; k < NL; ++k) q[k] = min(NL * t + k, W - 1);
 
   // band state at p = -1 (band.py _init_band)
-  int g1b = -gi - ge, g1a = -gi - ge;
+  int g1b = -P.gi - P.ge, g1a = -P.gi - P.ge;
   if (P.model == 2) {
     g1b = max(g1b, -P.gfb);
     g1a = max(g1a, -P.gfa);
   }
   g1b = max(g1b, fl);
   g1a = max(g1a, fl);
-  int S[NL], Sp[NL], E[NL], F[NL];
+  Band<W> st;
+  const bool idle = W == 16 && t >= 16;
+#pragma unroll
   for (int k = 0; k < NL; ++k) {
-    S[k] = q[k] == c - 1 ? g1b : (q[k] == c ? g1a : fl);
-    E[k] = q[k] == c - 1 ? g1b : fl;
-    F[k] = q[k] == c ? g1a : fl;
-    Sp[k] = q[k] == c ? 0 : fl;
+    st.S[k] = idle ? fl : (q[k] == c - 1 ? g1b : (q[k] == c ? g1a : fl));
+    st.E[k] = !idle && q[k] == c - 1 ? g1b : fl;
+    st.F[k] = !idle && q[k] == c ? g1a : fl;
+    st.Sp[k] = !idle && q[k] == c ? 0 : fl;
   }
-  int ihead = c, rprev = 0, p = -1;
-  int gmax = 0, gi_ = 0, gj_ = 0, nsteps = 0, cdrop = -128, nblk = 0;
+  roll_up<W>(st.Sp, st.Spu, fl, t);
+  roll_dn<W>(st.Sp, st.Spd, fl, t);
+  st.ihead = c;
+  st.rprev = 0;
+  st.p = -1;
+  st.bv = 0;
+  st.bp = INT_MAX;
+  st.bi = 0;
+  st.cdrop = -128;
+  int nsteps = 0, nblk = 0;
   const int plim = min(alen[prob] + blen[prob] + 2 * TAIL_N,
                        max_blocks * BLK - 2);
-  // owner of the center lane cW = W / 2 (x-drop accumulator)
-  constexpr int tc = W == 64 ? 0 : c;
-  constexpr int kc = W == 64 ? 1 : 0;
+
+  // the first block's window is based at its own start; every later
+  // block's at the previous block's start, which covers it
+  int abase = st.ihead - W, bbase = st.p - st.ihead + 1;
+  int ra[G::NWIN], rb[G::NWIN];
+  load_window<W>(arow, LA, abase, t, ra);
+  load_window<W>(brow, LB, bbase, t, rb);
 
   for (int blk = 0; blk < max_blocks; ++blk) {
-    size_t bi = (size_t)prob * max_blocks + blk;
-    if (TRACE && t == 0) {
-      iheads[bi] = ihead;
-      rprevs[bi] = rprev;
-    }
-    uint32_t dirbits = 0;
-    for (int s = 0; s < BLK; ++s) {
-      // direction: down iff S[W-1] > S[0], alternating during ramp-in
-      const int s0 = __shfl_sync(FULL, S[0], 0);
-      const int sW = __shfl_sync(FULL, S[NL - 1], (W - 1) & 31);
-      const bool edge_ok = (ihead - (W - 1) >= 0) && (p + 2 - ihead >= 0);
-      const bool down = edge_ok ? (sW > s0) : (((p + 1) & 1) == 1);
-
-      int SE[NL], EE[NL], SF[NL], FF[NL], Sd[NL];
-      if (down) {
-        roll_up<W>(S, SE, fl, t);
-        roll_up<W>(E, EE, fl, t);
-        for (int k = 0; k < NL; ++k) {
-          SF[k] = S[k];
-          FF[k] = F[k];
-        }
-      } else {
-        roll_dn<W>(S, SF, fl, t);
-        roll_dn<W>(F, FF, fl, t);
-        for (int k = 0; k < NL; ++k) {
-          SE[k] = S[k];
-          EE[k] = E[k];
-        }
-      }
-      const int sh = (down ? 1 : 0) - rprev;
-      if (sh == 1) {
-        roll_up<W>(Sp, Sd, fl, t);
-      } else if (sh == -1) {
-        roll_dn<W>(Sp, Sd, fl, t);
-      } else {
-        for (int k = 0; k < NL; ++k) Sd[k] = Sp[k];
-      }
-
-      const int ihn = ihead + (down ? 0 : 1);
-      const int pn = p + 1;
-      int Sn[NL], En[NL], Fn[NL], cand[NL];
-      uint32_t code[NL];
-      for (int k = 0; k < NL; ++k) {
-        const int i = ihn - q[k];
-        const int j = pn + 2 - i;
-        const int ai = i - 1, bj = j - 1;
-        const int ac = (ai >= 0 && ai < LA) ? arow[ai] : NCODE;
-        const int bc = (bj >= 0 && bj < LB) ? brow[bj] : NCODE;
-        int e = max(SE[k] - gi, EE[k]) - ge;
-        int f = max(SF[k] - gi, FF[k]) - ge;
-        int sn = max(Sd[k] + sub[bc * 5 + ac],
-                     max(max(e, SE[k] - gfb), max(f, SF[k] - gfa)));
-        sn = max(sn, fl);
-        if (TRACE) {
-          code[k] = (uint32_t)(sn == SF[k] - gfa) |
-                    ((uint32_t)(sn == f) << 1) |
-                    ((uint32_t)(sn == SE[k] - gfb) << 2) |
-                    ((uint32_t)(sn == e) << 3) |
-                    ((uint32_t)(sn - gi >= f) << 4) |
-                    ((uint32_t)(sn - gi >= e) << 5);
-        }
-        // true boundary values on the first row / column
-        int gaj = -(j > 0 ? gi : 0) - ge * j;
-        int gbi = -(i > 0 ? gi : 0) - ge * i;
-        if (P.model == 2) {
-          gaj = max(gaj, -P.gfa * j);
-          gbi = max(gbi, -P.gfb * i);
-        }
-        gaj = max(gaj, fl);
-        gbi = max(gbi, fl);
-        const bool on_i0 = i == 0 && j >= 0;
-        const bool on_j0 = j == 0 && i >= 0;
-        const bool inv = i < 0 || j < 0;
-        if (on_i0) sn = gaj;
-        if (on_j0) sn = gbi;
-        if (inv) sn = fl;
-        if (on_j0) e = gbi;
-        if (on_i0 || inv) e = fl;
-        if (on_i0) f = gaj;
-        if (on_j0 || inv) f = fl;
-        if (W == 16 && t >= 16) sn = e = f = fl;  // idle half-warp
-        Sn[k] = sn;
-        En[k] = e;
-        Fn[k] = f;
-        cand[k] = (on_i0 || on_j0 || inv || (W == 16 && t >= 16)) ? fl : sn;
-      }
-
-      if (TRACE) {
-        uint32_t v = code[0];
-        if (NL == 2) v |= code[NL - 1] << 16;
-        const uint32_t hi = __shfl_down_sync(FULL, v, 16);
-        if (t < 16)
-          masks[(bi * BLK + s) * 16 + t] = W == 16 ? v : (v | (hi << 8));
-        dirbits |= (down ? 1u : 0u) << s;
-      }
-
-      // step max, lowest lane on ties
-      int bv = cand[0], bq = q[0];
-      if (NL == 2 && cand[NL - 1] > bv) {
-        bv = cand[NL - 1];
-        bq = q[NL - 1];
-      }
+    const size_t bi = (size_t)prob * max_blocks + blk;
+    __syncwarp();
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const int ov = __shfl_xor_sync(FULL, bv, off);
-        const int oq = __shfl_xor_sync(FULL, bq, off);
-        if (ov > bv || (ov == bv && oq < bq)) {
-          bv = ov;
-          bq = oq;
-        }
+    for (int m = 0; m < G::NWIN; ++m) {
+      const int x = t + 32 * m;
+      if (x < G::WIN) {
+        sm.sa[x] = (int8_t)ra[m];
+        sm.sb5[x] = (int8_t)(5 * rb[m]);
       }
-      if (bv > gmax) {
-        gmax = bv;
-        gi_ = ihn - bq;
-        gj_ = pn + 2 - gi_;
-      }
-      // saturating int8 center-lane drop accumulator (gaba.c:1650)
-      const int dl = __shfl_sync(FULL, Sn[kc] - S[kc], tc);
-      cdrop = min(max(cdrop - dl, -128), 127);
-
-      for (int k = 0; k < NL; ++k) {
-        Sp[k] = S[k];
-        S[k] = Sn[k];
-        E[k] = En[k];
-        F[k] = Fn[k];
-      }
-      ihead = ihn;
-      rprev = down ? 0 : 1;
-      p = pn;
-      ++nsteps;
     }
-    if (TRACE && t == 0) dirs[bi] = dirbits;
+    __syncwarp();
+    const int na = st.ihead - W, nb = st.p - st.ihead + 1;
+    load_window<W>(arow, LA, na, t, ra);   // the next block's window
+    load_window<W>(brow, LB, nb, t, rb);
+    if (TRACE && t == 0) {
+      iheads[bi] = st.ihead;
+      rprevs[bi] = st.rprev;
+    }
+    scores<W>(sm, st.ihead, st.p, abase, bbase, q, st.scd, st.scr);
+    uint32_t dirbits = 0;
+    if (st.ihead - (W - 1) >= 1 && st.p + 2 - st.ihead >= 1) {
+#pragma unroll 4
+      for (int s = 0; s < BLK; ++s)
+        step<W, TRACE, true>(st, sm, P, t, q, s, abase, bbase, dirbits);
+    } else {
+#pragma unroll 4
+      for (int s = 0; s < BLK; ++s)
+        step<W, TRACE, false>(st, sm, P, t, q, s, abase, bbase, dirbits);
+    }
+    nsteps += BLK;
     ++nblk;
+    if constexpr (TRACE) {
+      __syncwarp();
+      uint32_t* mrow = masks + bi * BLK * 16;
+#pragma unroll 4
+      for (int w = t; w < BLK * 16; w += 32) {
+        const uint8_t* cs = sm.code + (w >> 4) * W + (w & 15);
+        uint32_t v = cs[0];
+        if (W >= 32) v |= (uint32_t)cs[16] << 8;
+        if (W == 64) v |= (uint32_t)cs[32] << 16 | (uint32_t)cs[48] << 24;
+        mrow[w] = v;
+      }
+      if (t == 0) dirs[bi] = dirbits;
+    }
+    abase = na;
+    bbase = nb;
     // X-drop test at block end (gaba.c:1738) + p-limit
-    if (cdrop > P.xdrop - 128 || p >= plim) break;
+    const int cdrop = __shfl_sync(FULL, st.cdrop, G::TC);
+    if (cdrop > P.xdrop - 128 || st.p >= plim) break;
+  }
+
+  // the best cell: value descending, step ascending, lane ascending
+  // (a lower lane at one step is a larger i)
+  int bv = st.bv, bp = st.bp, bi = st.bi;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const int ov = __shfl_xor_sync(FULL, bv, off);
+    const int op = __shfl_xor_sync(FULL, bp, off);
+    const int oi = __shfl_xor_sync(FULL, bi, off);
+    if (ov > bv || (ov == bv && (op < bp || (op == bp && oi > bi)))) {
+      bv = ov;
+      bp = op;
+      bi = oi;
+    }
   }
   if (t == 0) {
-    o_score[prob] = gmax;
-    o_i[prob] = gi_;
-    o_j[prob] = gj_;
+    o_score[prob] = bv;
+    o_i[prob] = bv > 0 ? bi : 0;
+    o_j[prob] = bv > 0 ? bp + 2 - bi : 0;
     o_steps[prob] = nsteps;
     o_blocks[prob] = nblk;
   }
@@ -280,10 +410,9 @@ void launch(const FillParams& P, const int8_t* a, const int32_t* alen,
             int32_t* o_steps, int32_t* o_blocks, uint32_t* masks,
             uint32_t* dirs, int32_t* iheads, int32_t* rprevs,
             cudaStream_t st) {
-  dim3 grid((B + WARPS - 1) / WARPS), block(WARPS * 32);
-  fill_kernel<W, TRACE><<<grid, block, 0, st>>>(
-      P, a, alen, la, b, blen, lb, B, max_blocks, o_score, o_i, o_j,
-      o_steps, o_blocks, masks, dirs, iheads, rprevs);
+  fill_kernel<W, TRACE><<<B, 32, 0, st>>>(
+      P, a, alen, la, b, blen, lb, max_blocks, o_score, o_i, o_j, o_steps,
+      o_blocks, masks, dirs, iheads, rprevs);
 }
 
 }  // namespace
@@ -295,6 +424,7 @@ extern "C" int fill_launch(const void* a, const void* alen, int la,
                            void* o_j, void* o_steps, void* o_blocks,
                            void* masks, void* dirs, void* iheads,
                            void* rprevs, void* stream) {
+  if (B == 0) return (int)cudaSuccess;
   FillParams P;
   std::memcpy(&P, params, sizeof(P));
   auto A = static_cast<const int8_t*>(a);

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from minialign_tpu.params import ScoreParams
+from ..params import ScoreParams
 
 BLK = 32           # steps per block, matches gaba's BLK (gaba.c:177)
 NCODE = 4          # N sentinel code

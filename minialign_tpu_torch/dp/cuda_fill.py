@@ -3,10 +3,10 @@
 Replaces minialign_tpu/dp/pallas_fill.py:make_fill_pallas (the Pallas
 TPU kernel, whose semantics twin is minialign_tpu/dp/band.py:make_fill)
 and is held against this package's band.fill_plain. One warp per
-problem; the kernel stops a problem at its own termination, so trace
-blocks after that stay zero (the traceback never reads past the max),
-and n_blocks is the largest per-problem block count, which equals the
-batch-wide count of the batched reference.
+problem and per thread block; the kernel stops a problem at its own
+termination, so trace blocks after that stay zero (the traceback never
+reads past the max), and n_blocks is the largest per-problem block
+count, which equals the batch-wide count of the batched reference.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from minialign_tpu.params import ScoreParams
+from ..params import ScoreParams
 
 from .. import _build
 from .band import BLK, FillResult, TraceBuffers, fill_params
@@ -66,6 +66,8 @@ def fill_cuda(p: ScoreParams, W: int, max_blocks: int, trace: bool,
                 _build.ptr(masks), _build.ptr(dirs), _build.ptr(iheads),
                 _build.ptr(rprevs), _build.stream_of(a))
         _build.count("fill")
+        if trace:
+            _build.count_traced_fill(B)
         _build.check(lib, rc, "fill kernel")
     res = FillResult(max_score=out[0], max_i=out[1], max_j=out[2],
                      n_steps=out[3],

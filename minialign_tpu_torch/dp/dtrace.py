@@ -14,7 +14,7 @@ traceback_one does, and return
 The JAX walker chunked runs by its XLA probe depth (CHAIN), so its
 n_ent/t_fin differ; decoded paths and every other row are the same.
 `dtrace_plain` advances every live problem by one move per iteration,
-batched over problems; the kernel runs one thread per problem.
+batched over problems; the kernel runs one warp per problem.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from minialign_tpu.params import ScoreParams
+from ..params import ScoreParams
 
 from .. import _build
 from .band import BLK, M_E, M_EO, M_F, M_FO, M_GFA, M_GFB

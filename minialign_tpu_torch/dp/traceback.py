@@ -12,7 +12,7 @@ import dataclasses
 
 import numpy as np
 
-from minialign_tpu.params import ScoreParams
+from ..params import ScoreParams
 from .band import BLK, M_E, M_EO, M_F, M_FO, M_GFA, M_GFB
 
 
@@ -69,7 +69,7 @@ def traceback_one(p: ScoreParams, W: int,
                            dcnt=0, agcnt=0, bgcnt=0, identity=0.0,
                            gap_penalty=0)
 
-    from minialign_tpu import native
+    from .. import native
     if native.available():
         r = native.trace_one(p, W, masks, dirs, int(iheads[0]),
                              int(score), int(ai), int(bj))

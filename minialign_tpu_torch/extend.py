@@ -17,17 +17,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from minialign_tpu.chain import (_u, _v, chain_seeds, collect_seeds,
-                                 coords_to_xy, seed_round)
-from minialign_tpu.index.build import MMIndex
-from minialign_tpu.params import MapParams, ScoreParams
-
+from .chain import (_u, _v, chain_seeds, collect_seeds, coords_to_xy,
+                    seed_round)
 from .device import resolve_device
 from .dp import band
 from .dp.band import fill
 from .dp.cuda_gather import gather
 from .dp.dtrace import SUMMARY_ROWS, dtrace
 from .dp.traceback import TraceResult, _identity
+from .index.build import MMIndex
+from .params import MapParams, ScoreParams
 
 MM_CREM = 50000
 MM_SREM = 8
@@ -417,7 +416,7 @@ class FillEngine:
         """Traced results: decode each problem's run-length entries into
         paths (native.rle_paths, numpy fallback) and price its counters
         (minialign_tpu/extend.py _trace_device_harvest)."""
-        from minialign_tpu import native as _nat
+        from . import native as _nat
         p = self.p
         summ = summary_d.cpu().numpy()
         row = dict(zip(SUMMARY_ROWS, summ))
@@ -534,7 +533,7 @@ def _load_next(st: _SearchState, seeds, tglen: int, rid: int, qlen: int,
     # radix_sort_64x keyed on pdiff ONLY (minialign.c:3931): equal
     # pdiffs keep ksort's permutation, and the reference pops the
     # LAST element after the sort
-    from minialign_tpu.ksort import ks_radix64
+    from .ksort import ks_radix64
     keys = np.asarray([pd & 0xFFFFFFFF for pd, _ in st.next_arr],
                       np.uint32)
     order = ks_radix64(keys)

@@ -15,19 +15,19 @@ Format semantics from the reference printer (minialign.c:4734-5701):
   * mapq is stored x16 and printed >> 4 (MAPQ_DEC, minialign.c:4175).
   * MD re-walks the path against both sequences (minialign.c:5240).
 
-Carried from minialign_tpu/io/sam.py unchanged; only the imports
-differ (the JAX module reaches jax through its extend/band imports).
+Carried from the JAX package's minialign_tpu/io/sam.py unchanged; only
+the imports differ (the JAX module reaches jax through its extend/band
+imports).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from minialign_tpu.io.bseq import DEC_F, decode
-from minialign_tpu.params import (TAG_AS, TAG_IH, TAG_MD, TAG_NH, TAG_NM,
-                                 TAG_RG, TAG_SA, TAG_XS)
-
 from ..extend import Aln
+from ..params import (TAG_AS, TAG_IH, TAG_MD, TAG_NH, TAG_NM, TAG_RG, TAG_SA,
+                      TAG_XS)
+from .bseq import DEC_F, decode
 
 
 _OPC = "MID"
@@ -48,7 +48,7 @@ def parse_path_rv(upath: str, off: int, plen: int) -> list:
     bits below `off` (earlier path segments, or the zero padding below
     the path head, which reads as 'R') participate in the window
     counts."""
-    from minialign_tpu import native
+    from .. import native
     if native.available():
         r = native.parse_rv(upath, off, plen)
         if r is not None:
@@ -111,7 +111,7 @@ def seg_cigar(a, s) -> str:
     dominated the printer at 500-read scale)."""
     up = getattr(a, "upath", "")
     if up:
-        from minialign_tpu import native
+        from .. import native
         if native.available():
             off = len(up) - (s.po + len(s.path))
             cg = native.rv_cigar(up, off, len(s.path))
@@ -137,7 +137,7 @@ def cigar_from(tokens) -> str:
 def cigar_ops(path: str) -> list:
     """Forward path ('D'=query base, 'R'=ref base) -> [(count, op)]
     per the gaba parser conventions (see module docstring)."""
-    from minialign_tpu import native
+    from .. import native
     if native.available():
         rle = native.cigar_rle(path)
         return [(int(w) >> 4, _OPC[w & 15]) for w in rle]
@@ -422,7 +422,7 @@ def gapped_pair(tokens: list, rcodes, qcodes) -> tuple:
     """Gapped alignment rows for MAF (ref row, query row), from
     display-order cigar tokens (the reference renders these with
     gaba_dump_seq_reverse — the same _parser_loop_rv tokens)."""
-    from minialign_tpu.io.bseq import decode
+    from .bseq import decode
     r = decode(rcodes).decode()
     q = decode(qcodes).decode()
     ri = qi = 0

@@ -6,8 +6,9 @@ pool with one read per worker; here a single host thread coordinates
 many in-flight reads and the device executes their extension requests
 in lockstep batches (see extend.py docstring).
 
-Carried from minialign_tpu/pipeline.py unchanged; only the imports
-differ (the JAX module reaches jax through its extend/band imports).
+Carried from the JAX package's minialign_tpu/pipeline.py unchanged; only
+the imports differ (the JAX module reaches jax through its extend/band
+imports).
 """
 
 from __future__ import annotations
@@ -17,9 +18,8 @@ import dataclasses
 import numpy as np
 
 from .extend import Aln, FillEngine, extend_read
-from minialign_tpu.index.build import MMIndex
-from minialign_tpu.params import MapParams
-
+from .index.build import MMIndex
+from .params import MapParams
 from .post import post_map, prune_regs
 
 
@@ -46,7 +46,7 @@ def _postprocess(mp: MapParams, out) -> Reg | None:
     # radix_sort_64x on the offsetted accumulated score
     # (minialign.c:4452): ascending offsetted = descending real, with
     # ksort's exact permutation for equal scores
-    from minialign_tpu.ksort import ks_radix64
+    from .ksort import ks_radix64
     keys = np.asarray([(0x40000000 - r[0]) & 0xFFFFFFFF for r in res],
                       np.uint32)
     res = [res[i] for i in ks_radix64(keys)]

@@ -6,8 +6,9 @@ SAM equality: unique-length estimate ulen = ec * max(score - usc, 0)
 with ec = 2 / (pid*(mcoef+xcoef) - xcoef), pe = 1/(ulen^2+1), mapq =
 clip(-10 * 16 * log10(pe)) stored x16 (MAPQ_COEF) and printed >> 4.
 
-Carried from minialign_tpu/post.py unchanged; only the imports
-differ (the JAX module reaches jax through its extend/band imports).
+Carried from the JAX package's minialign_tpu/post.py unchanged; only
+the imports differ (the JAX module reaches jax through its extend/band
+imports).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import math
 
 from .extend import Bin
-from minialign_tpu.params import MAPQ_COEF, MapParams
+from .params import MAPQ_COEF, MapParams
 
 
 OFS = 0x40000000

@@ -39,6 +39,24 @@ W = 64                 # rows of the loop kernels (two per thread)
 # take minutes to hours.
 CPU_STEPS = 8
 
+# The card's peaks for a kernel's bound (NVIDIA's H100 SXM data
+# sheet): 3.35 TB/s of HBM, and 32-bit
+# ALU operations at 33.5 T/s, i.e. its 67 TFLOP/s of float32 outside the
+# tensor cores with a fused multiply-add counted as one operation.
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 33.5e12
+
+# the single PyTorch call that computes each elementwise binop
+LIBRARY_BINOP = {"add": torch.add, "maximum": torch.maximum,
+                 "compare-gt": torch.gt, "select": torch.maximum}
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, float]:
+    """(bytes ms, operations ms): the least times for moving nbytes
+    through HBM and for doing ops 32-bit operations; the bound is the
+    larger."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
+
 
 def binop_plain(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """op(a, b) in the inputs' type (compare-gt: bool)."""
@@ -213,7 +231,11 @@ class Report:
     tensors and must equal it exactly; a difference, or an exception in
     a case, is a failure and makes `status` 1. Per kernel it keeps the
     largest difference and the summed kernel and plain times of the
-    compared runs (CUDA events)."""
+    compared runs (CUDA events). A case's `work` is (its input tensors,
+    operations per output element): its bound moves the inputs and the
+    output once and does the operations; its `library` is the one
+    PyTorch call, where there is one, that computes the same function on
+    the same inputs, timed beside it."""
 
     CHECK_STEPS = (64, 2048)   # loops are compared at these step counts
 
@@ -238,29 +260,45 @@ class Report:
         self.say(f"  FAIL {name}: {type(err).__name__} {msg}")
         self.failures.append(name)
 
-    def _compare(self, kernel: str, run, plain):
+    def _compare(self, kernel: str, run, plain, work, library=None):
         """(run()'s output, equal?, kernel ms, plain ms), CUDA events."""
         got, ms = _once_ms(run, True)
         want, pms = _once_ms(plain, True)
-        st = self.stats.setdefault(
-            kernel, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, compared=0))
+        st = self.stats.setdefault(kernel, dict(
+            max_abs_err=0.0, ms=0.0, plain_ms=0.0, compared=0,
+            bound_bytes_ms=0.0, bound_ops_ms=0.0, bound_ms=0.0,
+            library_ms=0.0, library_kernel_ms=0.0, library_cases=0))
         st["max_abs_err"] = max(st["max_abs_err"], max_abs_err(got, want))
         st["ms"] += ms
         st["plain_ms"] += pms
         st["compared"] += 1
+        ins, ops_per = work
+        tb, to = bound_ms(sum(x.numel() * x.element_size() for x in ins)
+                          + got.numel() * got.element_size(),
+                          got.numel() * ops_per)
+        st["bound_bytes_ms"] += tb
+        st["bound_ops_ms"] += to
+        st["bound_ms"] += max(tb, to)
+        if library is not None:
+            _once_ms(library, True)                  # warm-up
+            st["library_ms"] += _once_ms(library, True)[1]
+            st["library_kernel_ms"] += ms
+            st["library_cases"] += 1
         ok = got.shape == want.shape and got.dtype == want.dtype and \
             torch.equal(got, want)
         return got, ok, ms, pms
 
     def case(self, name: str, kernel: str, run: Callable[[], torch.Tensor],
-             plain: Callable[[], torch.Tensor], sample: bool = False):
+             plain: Callable[[], torch.Tensor], work, library=None,
+             sample: bool = False):
         """run() is the probe on the report's device, plain() its twin on
         the same tensors. Returns run()'s output, None on failure."""
         try:
             if not self.cuda:
                 got, ok = run(), True
             else:
-                got, ok, _, _ = self._compare(kernel, run, plain)
+                got, ok, _, _ = self._compare(kernel, run, plain, work,
+                                              library)
         except Exception as e:  # the tools report per case, then go on
             self.fail(name, e)
             return None
@@ -276,16 +314,17 @@ class Report:
     def loop(self, name: str, kernel: str, run: Callable[[int], torch.Tensor],
              plain: Callable[[int], torch.Tensor],
              timer: Callable[[int], Timed],
-             counts: tuple[int, ...]) -> list[tuple[int, Timed]] | None:
+             counts: tuple[int, ...], work) -> list[tuple[int, Timed]] | None:
         """A timing loop: on CUDA run(k) == plain(k) at CHECK_STEPS (and
         the last one's times printed), then timer(n) of the kernel for
         each n of counts; on the CPU timer(CPU_STEPS) of the plain twin.
-        Returns the (n, Timed) pairs."""
+        work(k) is the case's work at k steps. Returns the (n, Timed)
+        pairs."""
         try:
             if self.cuda:
                 for k in self.CHECK_STEPS:
                     _, ok, ms, pms = self._compare(kernel, lambda: run(k),
-                                                   lambda: plain(k))
+                                                   lambda: plain(k), work(k))
                     if not ok:
                         raise AssertionError(
                             f"kernel != plain twin at {k} steps")

@@ -38,6 +38,15 @@ OPS = (
      "int16"),
 )
 OP_NAMES = tuple(o for o, _, _ in OPS)
+# operations per output element of each case (run2_plain's, with the
+# casts counted as one)
+OP_COST = {"multiply": 1, "sub": 1, "concat-roll": 2, "arith-eq-mask": 4,
+           "arith-select": 7, "min": 1, "broadcast-row-mul": 1,
+           "bf16->int32": 2, "int32->bf16": 2,
+           "int16-store-int32-compute": 2}
+# the cases that one PyTorch call computes
+LIBRARY = {"multiply": torch.mul, "sub": torch.sub, "min": torch.minimum,
+           "broadcast-row-mul": lambda a, b: torch.mul(a, b[0:1])}
 
 
 def run2_plain(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -132,14 +141,16 @@ def main(rep: Report, rng: np.random.Generator) -> None:
     for op, name, dt in OPS:
         x, y = inputs(rng, dt, dev)
         rep.case(name, "p3", lambda: run2(op, x, y, dev),
-                 lambda: run2_plain(op, x, y))
+                 lambda: run2_plain(op, x, y), ((x, y), OP_COST[op]),
+                 (lambda: LIBRARY[op](x, y)) if op in LIBRARY else None)
     rep.say(f"[timing] {N_ARR} arrays x ({W},128), add+2max+sub per array "
             f"per step, in-kernel loop ({rep.where()})")
     for dt in TIMING_DTYPES:
         x = timing_input(rng, dt, dev)
         ts = rep.loop(f"{dt} timing", "p3", lambda n: timing_loop(x, n, dev),
                       lambda n: timing_plain(x, n),
-                      lambda n: timing(x, n, dev), (STEPS,))
+                      lambda n: timing(x, n, dev), (STEPS,),
+                      lambda n: ((x,), N_ARR * (5 * n + 1)))
         for n, t in ts or ():
             rep.say(f"  {dt}: slope {t.ns_per_step:.2f} ns/step at {n} "
                     f"steps (t1={t.t1_ms:.1f}ms t2={t.t2_ms:.1f}ms)")

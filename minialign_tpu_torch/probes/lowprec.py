@@ -20,9 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._common import (BINOPS, W, Report, Timed, binop, binop_plain,
-                      carry_plain, code, columns, inputs, launch, on,
-                      on_kernel, roll_up, slope, tensor)
+from ._common import (BINOPS, LIBRARY_BINOP, W, Report, Timed, binop,
+                      binop_plain, carry_plain, code, columns, inputs,
+                      launch, on, on_kernel, roll_up, slope, tensor)
 
 DTYPES = ("int16", "int8", "bfloat16", "float32", "int32")
 STEP_DTYPES = ("int32", "float32", "bfloat16", "int16")
@@ -140,15 +140,16 @@ def main(rep: Report, rng: np.random.Generator) -> None:
             x, y = inputs(rng, dt, dev)
             rep.case(f"{dt} {op}", "p2",
                      lambda: elementwise(op, x, y, dev),
-                     lambda: elementwise_plain(op, x, y))
+                     lambda: elementwise_plain(op, x, y), ((x, y), 1),
+                     lambda: LIBRARY_BINOP[op](x, y))
         x, y = inputs(rng, dt, dev)
         rep.case(f"{dt} max-in-carry", "p2",
                  lambda: in_carry("maximum", x, y, dev),
-                 lambda: in_carry_plain("maximum", x, y))
+                 lambda: in_carry_plain("maximum", x, y), ((x, y), ROUNDS))
         x, y = inputs(rng, dt, dev)
         rep.case(f"{dt} roll-sel-in-carry", "p2",
                  lambda: roll_concat(x, y, dev),
-                 lambda: roll_concat_plain(x, y))
+                 lambda: roll_concat_plain(x, y), ((x, y), 3 * ROUNDS))
     rep.say(f"[step timing] {N_ARR} arrays x ({W},128), roll+select+add+max "
             f"per step ({rep.where()})")
     for dt in STEP_DTYPES:
@@ -157,7 +158,8 @@ def main(rep: Report, rng: np.random.Generator) -> None:
                       lambda n: step_loop(x, dd, n, dev),
                       lambda n: step_timer_plain(x, dd, n),
                       lambda n: step_timer(x, dd, n, dev),
-                      (STEPS, LONG_STEPS))
+                      (STEPS, LONG_STEPS),
+                      lambda n: ((x, dd), N_ARR * (3 * n + 1)))
         for n, t in ts or ():
             rep.say(f"  {dt}: {t.ns_per_step:.1f} ns/step at {n} steps "
                     f"(t1={t.t1_ms:.3f}ms)")

@@ -13,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._common import BINOPS, Report, binop, binop_plain, carry_plain, inputs
+from ._common import (BINOPS, LIBRARY_BINOP, Report, binop, binop_plain,
+                      carry_plain, inputs)
 
 RANGE = (-100, 100)    # the tool's inputs, cut to the dtype
 DTYPES = ("int16", "int8", "uint8")
@@ -53,9 +54,10 @@ def main(rep: Report, rng: np.random.Generator) -> None:
             x, y = inputs(rng, dt, rep.device, *RANGE)
             rep.case(f"{dt} {op}", "p1",
                      lambda: probe(op, x, y, rep.device),
-                     lambda: probe_plain(op, x, y))
+                     lambda: probe_plain(op, x, y), ((x, y), 1),
+                     lambda: LIBRARY_BINOP[op](x, y))
         for op, nm in zip(CARRY_OPS, ("max-in-carry", "sel-in-carry")):
             x, y = inputs(rng, dt, rep.device, *RANGE)
             rep.case(f"carry {dt} {nm}", "p1",
                      lambda: probe_carry(op, x, y, rep.device),
-                     lambda: probe_carry_plain(op, x, y))
+                     lambda: probe_carry_plain(op, x, y), ((x, y), ROUNDS))

@@ -176,14 +176,14 @@ def main(rep: Report, rng: np.random.Generator) -> None:
     w = tensor(rng.integers(0, 2**30, SHAPE), "int32", dev)
     s = tensor(rng.integers(0, 10, SHAPE), "int32", dev)
     rep.case("var-amount shift+mask", "p4", lambda: var_shift(w, s, dev),
-             lambda: var_shift_plain(w, s), sample=True)
+             lambda: var_shift_plain(w, s), ((w, s), 3), sample=True)
     w = tensor(rng.integers(0, 100, SHAPE), "int32", dev)
     rep.case("row roll int32 slab in carry", "p4",
              lambda: roll_in_carry(w, dev), lambda: roll_in_carry_plain(w),
-             sample=True)
+             ((w,), 2 * ROLL_ROUNDS), sample=True)
     x = tensor(rng.integers(0, 2**18, SHAPE), "int32", dev)
     got = rep.case("div-by-10 magic", "p4", lambda: div10_magic(x, dev),
-                   lambda: div10_magic_plain(x), sample=True)
+                   lambda: div10_magic_plain(x), ((x,), 3), sample=True)
     if got is not None:
         msg = div10_check(x, got)
         rep.say("  OK   div-by-10 magic == x // 10" if msg is None else
@@ -195,7 +195,8 @@ def main(rep: Report, rng: np.random.Generator) -> None:
     ts = rep.loop("stream timing", "p4",
                   lambda n: stream_loop(wa, wb, d, n, dev),
                   lambda n: stream_timing_plain(wa, wb, d, n),
-                  lambda n: stream_timing(wa, wb, d, n, dev), (STEPS,))
+                  lambda n: stream_timing(wa, wb, d, n, dev), (STEPS,),
+                  lambda n: ((wa, wb, d), 30 * n))
     for n, t in ts or ():
         rep.say(f"  stream update: {t.ns_per_step:.2f} ns/step "
                 f"(t1={t.t1_ms:.1f}ms; {n} steps, {rep.where()})")

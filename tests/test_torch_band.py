@@ -11,6 +11,7 @@ from minialign_tpu.dp import band as jband
 from minialign_tpu.dp import pallas_fill
 from minialign_tpu.params import ScoreParams
 from minialign_tpu_torch.dp import band as tband
+from minialign_tpu_torch.params import from_fields
 
 PARAMS = {
     "affine": ScoreParams(matrix=tuple(2 if (i & 3) == (i >> 2) else -3
@@ -51,7 +52,7 @@ def run_both(p, W, nb, trace, seqs_a, seqs_b):
     bb, blen = jband.pad_codes(seqs_b)
     want = jband.make_fill(p, W, max_blocks=nb, trace=trace)(
         ab, alen, bb, blen)
-    got = tband.fill_plain(p, W, nb, trace, torch.from_numpy(ab),
+    got = tband.fill_plain(from_fields(p), W, nb, trace, torch.from_numpy(ab),
                            torch.from_numpy(alen), torch.from_numpy(bb),
                            torch.from_numpy(blen))
     return want, got
@@ -105,9 +106,9 @@ def test_fill_plain_matches_pallas_interpret():
     bb, blen = jband.pad_codes(seqs_b)
     r1, b1 = pallas_fill.make_fill_pallas(p, W, max_blocks=nb, trace=True,
                                           interpret=True)(ab, alen, bb, blen)
-    r2, b2 = tband.fill_plain(p, W, nb, True, torch.from_numpy(ab),
-                              torch.from_numpy(alen), torch.from_numpy(bb),
-                              torch.from_numpy(blen))
+    r2, b2 = tband.fill_plain(from_fields(p), W, nb, True,
+                              torch.from_numpy(ab), torch.from_numpy(alen),
+                              torch.from_numpy(bb), torch.from_numpy(blen))
     for f in ("max_score", "max_i", "max_j"):
         np.testing.assert_array_equal(np.asarray(getattr(r1, f)),
                                       getattr(r2, f).numpy())
@@ -122,7 +123,7 @@ def test_fill_plain_matches_pallas_interpret():
 def test_fill_dispatch_cpu_and_max_blocks():
     """band.fill on CPU tensors is fill_plain; max_blocks_for's budget
     gives the same results as a generous one."""
-    p = PARAMS["combined"]
+    p = from_fields(PARAMS["combined"])
     seqs_a, seqs_b = make_pairs(3, 5, 50, 150)
     ab, alen = jband.pad_codes(seqs_a)
     bb, blen = jband.pad_codes(seqs_b)

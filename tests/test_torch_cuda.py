@@ -18,9 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from minialign_tpu.params import MapParams, ScoreParams
 from minialign_tpu_torch import _build
 from minialign_tpu_torch.dp import band, cuda_fill, cuda_gather, dtrace
+from minialign_tpu_torch.params import MapParams, ScoreParams
 from minialign_tpu_torch.probes import bf16ops, lowprec, subint32, wordstream
 from minialign_tpu_torch.probes._common import tensor
 
@@ -95,6 +95,68 @@ def test_dtrace_kernel_matches_plain(pname, W, dev):
     rp, sp = dtrace.dtrace_plain(p, W, *walk)
     assert torch.equal(sk, sp)
     assert torch.equal(rk, rp)
+
+
+def _edge_args(dev):
+    """chip_smoke.edge_pairs's problems: a tandem repeat against itself,
+    b == a, an unrelated pair that X-drops at once, problems shorter
+    than W, empty ones."""
+    rng = np.random.default_rng(5)
+    unit = rng.integers(0, 4, 7)
+    rep = np.tile(unit, 60)
+    same = rng.integers(0, 4, 500)
+    short = rng.integers(0, 4, 20)
+    empty = np.zeros(0, np.int64)
+    a, b = zip((rep, np.tile(unit, 55)), (rep, rep.copy()),
+               (same, same.copy()),
+               (rng.integers(0, 4, 600), rng.integers(0, 4, 600)),
+               (rng.integers(0, 4, 5), rng.integers(0, 4, 9)),
+               (rng.integers(0, 4, 40), rng.integers(0, 4, 30)),
+               (short, short.copy()), (empty, rng.integers(0, 4, 50)),
+               (empty, empty))
+    return [torch.from_numpy(x).to(dev)
+            for x in (*band.pad_codes(a), *band.pad_codes(b))]
+
+
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("W", [16, 32, 64])
+@pytest.mark.parametrize("pname", ["affine", "combined"])
+def test_fill_and_walk_kernels_on_edge_cases(pname, W, trace, dev):
+    p = PARAMS[pname]
+    args = _edge_args(dev)
+    nb = band.max_blocks_for(args[1].cpu().numpy(), args[3].cpu().numpy())
+    got = cuda_fill.fill_cuda(p, W, nb, trace, *args)
+    want = band.fill_plain(p, W, nb, trace, *args)
+    if not trace:
+        assert_fill_equal(got, None, want, None)
+        return
+    assert_fill_equal(got[0], got[1], want[0], want[1])
+    res, bufs = got
+    walk = (bufs.masks, bufs.dirs, bufs.iheads, res.max_score, res.max_i,
+            res.max_j)
+    rk, sk = dtrace.dtrace(p, W, *walk)
+    rp, sp = dtrace.dtrace_plain(p, W, *walk)
+    assert torch.equal(sk, sp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("W", [16, 64])
+def test_fill_and_walk_kernels_max_in_last_block(W, dev):
+    """a == b with the block budget ending in the block of the max."""
+    x = np.random.default_rng(9).integers(0, 4, 700)
+    args = [torch.from_numpy(v).to(dev)
+            for v in (*band.pad_codes([x]), *band.pad_codes([x]))]
+    nb = (2 * len(x) - 2) // band.BLK + 1
+    p = PARAMS["affine"]
+    res, bufs = cuda_fill.fill_cuda(p, W, nb, True, *args)
+    want = band.fill_plain(p, W, nb, True, *args)
+    assert_fill_equal(res, bufs, *want)
+    assert int(res.max_i[0]) == len(x)
+    assert (int(res.max_i[0] + res.max_j[0]) - 2) // band.BLK == nb - 1
+    walk = (bufs.masks, bufs.dirs, bufs.iheads, res.max_score, res.max_i,
+            res.max_j)
+    rk, sk = dtrace.dtrace(p, W, *walk)
+    rp, sp = dtrace.dtrace_plain(p, W, *walk)
+    assert torch.equal(sk, sp) and torch.equal(rk, rp)
 
 
 @pytest.mark.parametrize("wrap", [False, True])

@@ -15,6 +15,7 @@ from minialign_tpu.dp import traceback as jtraceback
 from minialign_tpu.params import ScoreParams
 from minialign_tpu_torch.dp import dtrace as tdtrace
 from minialign_tpu_torch.extend import rle_paths_py
+from minialign_tpu_torch.params import from_fields
 
 PARAMS = {
     "affine": ScoreParams(matrix=tuple(2 if (i & 3) == (i >> 2) else -3
@@ -68,7 +69,7 @@ def test_dtrace_plain_matches_jax(pname, W):
     res, bufs = _fill(p, W, 23 + W)
     B = res.max_score.shape[0]
     rle, summ = tdtrace.dtrace_plain(
-        p, W, *(torch.from_numpy(np.array(x).view(np.int32))
+        from_fields(p), W, *(torch.from_numpy(np.array(x).view(np.int32))
                 for x in (bufs.masks, bufs.dirs, bufs.iheads)),
         *(torch.from_numpy(np.array(x)) for x in (res.max_score, res.max_i,
                                         res.max_j)))
@@ -128,7 +129,7 @@ def test_dtrace_plain_empty_and_bad():
     ai[1] = bj[1] + 3 * W          # far off the band's diagonal
     bj[1] = max(int(bj[1]), 1)
     rle, summ = tdtrace.dtrace_plain(
-        p, W, *(torch.from_numpy(np.array(x).view(np.int32))
+        from_fields(p), W, *(torch.from_numpy(np.array(x).view(np.int32))
                 for x in (bufs.masks, bufs.dirs, bufs.iheads)),
         score, ai, bj)
     row = dict(zip(tdtrace.SUMMARY_ROWS, summ.numpy()))

@@ -12,7 +12,9 @@ from minialign_tpu.extend import revcomp_codes
 from minialign_tpu.index.build import build_index
 from minialign_tpu.params import IndexParams, MapParams
 from minialign_tpu.pipeline import align_batch as jax_align_batch
+from minialign_tpu_torch import params as tparams
 from minialign_tpu_torch.extend import FillEngine
+from minialign_tpu_torch.index.build import build_index as tbuild_index
 from minialign_tpu_torch.pipeline import align_batch
 
 
@@ -39,8 +41,13 @@ def index(genome):
 
 
 @pytest.fixture(scope="module")
+def tindex(genome):
+    return tbuild_index(tparams.IndexParams(), ["chr_t"], [genome])
+
+
+@pytest.fixture(scope="module")
 def engine():
-    return FillEngine(MapParams().score, batch=8, device="cpu")
+    return FillEngine(tparams.MapParams().score, batch=8, device="cpu")
 
 
 def _mutate(rng, s, err=0.08):
@@ -59,8 +66,10 @@ def _mutate(rng, s, err=0.08):
     return np.asarray(out, np.int8)
 
 
-def _same(mp, index, reads, engine, tbuf=None, tbuf_jax=None):
-    got = align_batch(mp, index, reads, engine, tbuf=tbuf)
+def _same(mp, index, tindex, reads, engine, tbuf=None, tbuf_jax=None):
+    """The port (its own params and index) against the JAX package."""
+    got = align_batch(tparams.from_fields(mp), tindex, reads, engine,
+                      tbuf=tbuf)
     want = jax_align_batch(mp, index, reads, tbuf=tbuf_jax)
     assert len(got) == len(want)
     for k, (g, w) in enumerate(zip(got, want)):
@@ -90,30 +99,32 @@ def _cases(genome):
 
 @pytest.mark.parametrize("case", ["perfect", "reverse", "unmappable",
                                   "short", "mutated"])
-def test_align_batch_matches_jax(case, index, genome, engine):
+def test_align_batch_matches_jax(case, index, tindex, genome, engine):
     reads = _cases(genome)
     pick = {"perfect": [0], "reverse": [1], "unmappable": [2],
             "short": [3], "mutated": list(range(4, 10))}[case]
     mp = MapParams()
-    got = _same(mp, index, [reads[i] for i in pick], engine)
+    got = _same(mp, index, tindex, [reads[i] for i in pick], engine)
     if case in ("perfect", "reverse"):
         a = got[0].alns[0].aln
         assert (a.as0, a.ae, a.bs0, a.be) == (1000, 2500, 0, 1500)
 
 
-def test_host_built_requests_match_jax(index, genome, engine, monkeypatch):
+def test_host_built_requests_match_jax(index, tindex, genome, engine,
+                                      monkeypatch):
     """MINIALIGN_DEVICE_SEQS=0: align_batch sends raw code arrays instead
     of store slices; the engine uploads them and must agree all the
     same."""
     monkeypatch.setenv("MINIALIGN_DEVICE_SEQS", "0")
     reads = _cases(genome)
-    _same(MapParams(), index, [reads[1]] + reads[4:7], engine)
+    _same(MapParams(), index, tindex, [reads[1]] + reads[4:7], engine)
 
 
-def test_stale_rlen_tbuf_matches_jax(index, genome, engine):
+def test_stale_rlen_tbuf_matches_jax(index, tindex, genome, engine):
     """The thread-buffer's stale rlen (PARITY.md item 8) is replayed the
     same way, and left behind the same."""
     reads = [genome[1000:2500].copy(), genome[200:1400].copy()]
     tb, tbj = {"rlen": 0}, {"rlen": 0}
-    _same(MapParams(), index, reads, engine, tbuf=tb, tbuf_jax=tbj)
+    _same(MapParams(), index, tindex, reads, engine, tbuf=tb,
+          tbuf_jax=tbj)
     assert tb == tbj and tb["rlen"] == len(genome)
