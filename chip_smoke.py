@@ -6,7 +6,11 @@
 Phases, in order; any failure exits non-zero before the result line:
   0  the card's name and power limit (nvidia-smi); CUDA must be present
   1  build the kernels from csrc/ with nvcc (sm_90a)
-  2  K2 gather kernel == gather_plain, byte for byte, on a 5 Mb store
+  2  K2 gather kernel == its plain version, byte for byte: both sides
+     of a batch in one launch on every edge case of
+     kbench.GATHER_KINDS (L 128/4096/32768, B 1/3/64 a side, padded and
+     unpadded stores), then 512 windows of 32 kb from a 10 MB store,
+     timed as device time and as the wrapper's time a call
   3  K1 fill kernel == fill_plain (both score models x W 16/32/64 x
      trace on/off at B=128, ~2 kb; the edge cases of edge_pairs at W 16
      and 64; a max in the last block; W=64 with the -xpacbio scores at
@@ -20,7 +24,10 @@ Phases, in order; any failure exits non-zero before the result line:
      the JAX package's digest below; the port's host library loaded; the
      problems of each traced fill launch. Then phases 3-4 again at the
      median of those launch sizes (20 kb): the kernels timed, their
-     results held to phase 3's plain ones for the same problems
+     results held to phase 3's plain ones for the same problems. The
+     gather launches once a fill launch; a profiled rerun counts the
+     host-to-device copies (pageable and pinned); phase 2's timing again
+     at the run's median gather launch
   7  the step-mix probes P1-P4 through their entry point
      (minialign_tpu_torch.probes.run, i.e. python -m
      minialign_tpu_torch.probes): every case of the four JAX tools, each
@@ -222,37 +229,46 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("    " + line.strip())
 
-    # ---- 2: K2 gather on a 5 Mb (fwd + revcomp) store
+    # ---- 2: K2 gather: the edge cases, then 512 windows of 32 kb
+    t0 = time.time()
     rng = np.random.default_rng(1)
-    G = 5_000_000
-    store = torch.from_numpy(rng.integers(0, 5, 2 * G).astype(np.int8)).to(
-        dev)
-    B, L = 512, 32768
-    base = rng.integers(0, 2, B) * G
-    seglen = np.full(B, G)
-    start = rng.integers(0, G, B)
-    start[:4] = [G - 1, G, G - 100, 0]          # the store's segment ends
-    cap = rng.integers(L // 2, L + 1, B)
-    cap[4:8] = 0                                 # ln = 0
-    wrap = np.zeros(B, np.int64)
-    wrap[8:40] = G                               # circular windows
-    start[8:12] = G - rng.integers(1, 1000, 4)
-    meta = (base, start, cap, seglen, wrap)
-    # 40 calls a timed window: ~10-20 ms
-    got, ms = timed(torch, lambda: cuda_gather.gather(store, *meta, L), 5, 40)
-    want, pms = timed(torch, lambda: cuda_gather.gather_plain(store, *meta,
-                                                              L), 3)
+    Ls, n_cases = (128, 4096, 32768), 0
+    for i, La in enumerate(Ls):
+        Lb = Ls[(i + 1) % len(Ls)]                   # unequal L a side
+        for B in (1, 3, 64):
+            (fa, sa), (fb, sb) = (kbench.gather_side(rng, x, B)
+                                  for x in (La, Lb))
+            blk = torch.from_numpy(cuda_gather.pack_desc([sa, sb])).to(dev)
+            for pad in (cuda_gather.pad_store, None):
+                sta, stb = (torch.from_numpy(pad(f) if pad else f).to(dev)
+                            for f in (fa, fb))
+                got = cuda_gather.gather_pair(sta, stb, blk, B, La, Lb)
+                want = cuda_gather.gather_pair_plain(sta, stb, blk, B, La, Lb)
+                if not all(map(torch.equal, got, want)):
+                    fail(f"gather kernel != plain: La={La} Lb={Lb} B={B} "
+                         f"padded={pad is not None}")
+                n_cases += 1
+    say(f"[2] gather equal to plain on {n_cases} two-sided batches: every "
+        f"edge case ({', '.join(kbench.GATHER_KINDS)}) at L {Ls}, B 1/3/64 "
+        f"a side, padded and unpadded stores ({time.time() - t0:.0f} s)")
+    flat, side, L = kbench.gather_big()
+    B = len(side["base"])
+    store = torch.from_numpy(cuda_gather.pad_store(flat)).to(dev)
+    ms, wms, (got,) = kbench.gather_times(torch, [store], [side], [L])
+    blk = torch.from_numpy(cuda_gather.pack_desc([side])).to(dev)
+    (want, _), pms = timed(torch, lambda: cuda_gather.gather_pair_plain(
+        store, store, blk, B, L, 0), 3)
     if not torch.equal(got, want):
-        fail("gather kernel != gather_plain")
-    n_read = np.minimum(cap, L)
-    n_read = np.where(wrap > 0, n_read,
-                      np.minimum(n_read, np.maximum(seglen - start, 0)))
+        fail("gather kernel != gather_pair_plain at B=512 x 32 kb")
+    nbytes = B * L + kbench.gather_read_bytes(side, L) + blk.numel() * 4
     stats["gather"].update(max_abs_err=int((got.int() - want.int()).abs()
                                            .max()), ms=ms, plain_ms=pms,
-                           library_ms=None,
-                           **bound(B * L + int(n_read.sum()) + 40 * B, 0))
-    say(f"[2] gather B={B} L={L}: equal; kernel {ms:.3f} ms, plain "
-        f"{pms:.3f} ms ({B * L / ms / 1e6:.2f} GB/s kernel) on {card}")
+                           library_ms=None, **bound(nbytes, 0))
+    say(f"[2] gather B={B} L={L} (one side): equal; kernel {ms:.5f} ms "
+        f"device time ({nbytes / ms / 1e6:.1f} GB/s), wrapper {wms:.5f} ms a "
+        f"call with the descriptor upload, plain {pms:.3f} ms; "
+        f"{show(stats['gather'])} on {card}")
+    del got, want, store
 
     # ---- 3: K1 fill; 4: K3 walk on its trace buffers
     pr = {"affine": MapParams().score,
@@ -383,7 +399,7 @@ def main():
     say(f"[4] walk W=64 B=128 L=20kb: equal ({bad} out of band); kernel "
         f"{wms:.2f} ms ({wms * 1e6 / moves:.1f} ns/move over {moves} moves),"
         f" plain {wpms:.1f} ms; {show(stats['dtrace'])} on {card}")
-    del got, rk, sk, args, store
+    del got, rk, sk, args
 
     # ---- 5: goldens through the CLI on CUDA
     os.environ["MINIALIGN_TORCH_DEVICE"] = "cuda"
@@ -441,6 +457,33 @@ def main():
         f"({recs} records); wall {wall:.2f} s, {nbases / wall / 1e6:.3f} "
         f"Mbases/s, launches {launches}, host library loaded, problems per "
         f"traced fill launch {batches} on {card}")
+    if launches["gather"] != launches["fill"]:
+        fail(f"real size: {launches['gather']} gather launches for "
+             f"{launches['fill']} fill launches")
+    shapes = sorted(_build.GATHER_SHAPES, key=lambda x: (x[0] + x[1],
+                                                         x[2] + x[3]))
+    _build.reset_counts()
+    busy, pwall, per = kbench.profiled(torch, lambda: run_cli(
+        cli, ["-t1", "-xpacbio", ref_fa, reads_fq]))
+    n_h2d, n_page = kbench.h2d(per)
+    copies = {k: v[1] for k, v in per.items() if k.startswith("Memcpy")}
+    say(f"[6] gather launches {launches['gather']}, one a fill launch; "
+        f"profiled rerun: {n_h2d} host-to-device copies, {n_page} from "
+        f"pageable memory ({copies}), gather launches "
+        f"{_build.LAUNCHES['gather']}, device busy {busy:.1f} of "
+        f"{pwall:.1f} ms")
+
+    # ---- 2 again at the E2E run's median gather launch
+    Ba, Bb, La, Lb = shapes[len(shapes) // 2]
+    stores, sides = [], []
+    for Bx, Lx in ((Ba, La), (Bb, Lb)):
+        f, sx = kbench.gather_side(rng, Lx, Bx, kinds=("residue",))
+        stores.append(torch.from_numpy(cuda_gather.pad_store(f)).to(dev))
+        sides.append(sx)
+    gms, gwms, _ = kbench.gather_times(torch, stores, sides, [La, Lb])
+    say(f"[2] gather at the E2E median launch ({Ba} + {Bb} rows, L {La} / "
+        f"{Lb}; median of {len(shapes)} launches): equal to plain; kernel "
+        f"{gms:.5f} ms device time, wrapper {gwms:.5f} ms a call on {card}")
 
     # ---- 3/4 again at the E2E run's launch size
     if not batches:

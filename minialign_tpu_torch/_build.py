@@ -11,7 +11,8 @@ LAUNCHES counts kernel launches per kernel; each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels. TRACED_FILL_B lists the
 problems of each traced fill launch (the launch size the fill and walk
-kernels see on the main path).
+kernels see on the main path), GATHER_SHAPES the rows and row lengths
+of each side of each gather launch.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LAUNCHES = {"fill": 0, "gather": 0, "dtrace": 0,
             "p1": 0, "p2": 0, "p3": 0, "p4": 0}
 TRACED_FILL_B: list[int] = []
+GATHER_SHAPES: list[tuple[int, int, int, int]] = []   # (Ba, Bb, La, Lb)
 BUILD_LOG = ""        # nvcc's output of the last build (ptxas -v lines)
 
 _lib = None
@@ -46,11 +48,13 @@ _lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGS = {
     # name: argtypes (all return int = cudaError_t)
     "fill_launch": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "gather_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "gather_pair_launch": [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _P, _P,
+                           _P],
     "dtrace_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P,
                       _P, _P, _I, _P],
     "p1_probe_launch": [_P, _P, _I, _I, _I, _I, _P, _P],
@@ -138,11 +142,17 @@ def count_traced_fill(batch: int) -> None:
         TRACED_FILL_B.append(batch)
 
 
+def count_gather(shape: tuple[int, int, int, int]) -> None:
+    with _lock:
+        GATHER_SHAPES.append(shape)
+
+
 def reset_counts() -> None:
     with _lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
         TRACED_FILL_B.clear()
+        GATHER_SHAPES.clear()
 
 
 def check(lib, rc: int, what: str) -> None:

@@ -22,7 +22,8 @@ from .chain import (_u, _v, chain_seeds, collect_seeds, coords_to_xy,
 from .device import resolve_device
 from .dp import band
 from .dp.band import fill
-from .dp.cuda_gather import gather
+from .dp.cuda_gather import (desc_fields, gather_pair, pack_desc, pad_store,
+                             upload)
 from .dp.dtrace import SUMMARY_ROWS, dtrace
 from .dp.traceback import TraceResult, _identity
 from .index.build import MMIndex
@@ -236,6 +237,11 @@ def rle_paths_py(ent: np.ndarray):
 # device batch engine
 # ---------------------------------------------------------------------------
 
+def _row_len(elen) -> int:
+    """A side's row length: its longest problem, in 128-byte multiples."""
+    return max(128, -(-int(elen.max()) // 128) * 128)
+
+
 def _bucket(n: int) -> int:
     """Power-of-two length bucket, floor 512: requests are grouped by
     bucket so that a batch's rows and trace buffers stay near the size
@@ -274,8 +280,10 @@ class FillEngine:
         self._ref_src = None
 
     def _store(self, parts) -> torch.Tensor:
+        """The flat store on the device, padded for the gather kernel's
+        aligned loads (cuda_gather.pad_store)."""
         flat = np.concatenate(parts) if parts else np.zeros(1, np.int8)
-        return torch.from_numpy(np.ascontiguousarray(flat, np.int8)).to(
+        return torch.from_numpy(pad_store(np.asarray(flat, np.int8))).to(
             self.device)
 
     def set_index(self, mi) -> None:
@@ -348,22 +356,38 @@ class FillEngine:
         _, qidx, _, st0 = spec
         return max(0, self._q_len[qidx] - st0)
 
-    def _build_side(self, specs):
-        """(B, L) int8 rows on the device + (B,) int32 lengths for one
-        side: gathered from the store for slice specs, uploaded for raw
-        code arrays (the host-built path, MINIALIGN_DEVICE_SEQS=0)."""
-        if isinstance(specs[0], np.ndarray):
-            elen = np.asarray([len(x) for x in specs], np.int32)
-            L = max(128, -(-int(elen.max()) // 128) * 128)
-            rows = np.full((len(specs), L), band.NCODE, np.int8)
-            for s, x in enumerate(specs):
-                rows[s, :len(x)] = x
-            return torch.from_numpy(rows).to(self.device), elen
-        m = self._side_meta(specs)
-        L = max(128, -(-int(m["elen"].max()) // 128) * 128)
-        rows = gather(m["store"], m["base"], m["start"], m["cap"],
-                      m["seglen"], m["wrap"], L)
-        return rows, m["elen"]
+    def _raw_meta(self, a_specs, b_specs):
+        """Side rows for raw code arrays (the host-built path,
+        MINIALIGN_DEVICE_SEQS=0): every array of the batch in one store,
+        uploaded once, each row a whole segment."""
+        seqs = [np.asarray(x, np.int8) for x in (*a_specs, *b_specs)]
+        lens = np.asarray([len(x) for x in seqs], np.int32)
+        base = np.concatenate([[0], np.cumsum(lens[:-1], dtype=np.int64)])
+        flat = np.concatenate(seqs) if seqs else np.zeros(1, np.int8)
+        store = upload(pad_store(flat), self.device)
+        zero = np.zeros(len(seqs), np.int32)
+        m = dict(base=base, start=zero, cap=lens, seglen=lens, wrap=zero,
+                 elen=lens)
+        B = len(a_specs)
+        return ({k: v[:B] for k, v in m.items()} | {"store": store},
+                {k: v[B:] for k, v in m.items()} | {"store": store})
+
+    def _batch(self, a_specs, b_specs):
+        """Both sides of one fill batch on the device: (a, alen, b, blen,
+        n_blocks). Every row's fields, the fill's lengths included, go
+        up in one packed block (one non-blocking copy from pinned memory
+        on a card) and one gather launch builds both sides' rows."""
+        if isinstance(a_specs[0], np.ndarray):
+            ma, mb = self._raw_meta(a_specs, b_specs)
+        else:
+            ma, mb = self._side_meta(a_specs), self._side_meta(b_specs)
+        blk = upload(pack_desc([ma, mb]), self.device)
+        B = len(a_specs)
+        a, b = gather_pair(ma["store"], mb["store"], blk, B,
+                           _row_len(ma["elen"]), _row_len(mb["elen"]))
+        elen = desc_fields(blk)["elen"]
+        return (a, elen[:B], b, elen[B:],
+                band.max_blocks_for(ma["elen"], mb["elen"]))
 
     def run(self, reqs: list) -> list:
         """reqs: list of (kind, a, b, W), kind 'down' or 'up', a/b store
@@ -387,11 +411,8 @@ class FillEngine:
         for (trace, W, _, _), idxs in groups.items():
             for k in range(0, len(idxs), self.batch):
                 sub = idxs[k:k + self.batch]
-                a, alen = self._build_side([reqs[i][1] for i in sub])
-                b, blen = self._build_side([reqs[i][2] for i in sub])
-                nb = band.max_blocks_for(alen, blen)
-                alen_d = torch.from_numpy(alen).to(self.device)
-                blen_d = torch.from_numpy(blen).to(self.device)
+                a, alen_d, b, blen_d, nb = self._batch(
+                    [reqs[i][1] for i in sub], [reqs[i][2] for i in sub])
                 if trace:
                     res, bufs = fill(self.p, W, nb, True, a, alen_d, b,
                                      blen_d)

@@ -1,23 +1,31 @@
-"""Times the fill (K1) and walk (K3) kernels at the main path's shapes,
-and profiles the end-to-end run, on one CUDA card.
+"""Times the gather (K2), fill (K1) and walk (K3) kernels at the main
+path's shapes, and profiles the end-to-end run, on one CUDA card.
 
     python minialign_tpu_torch/kbench.py [--root DIR] [--batches 128,8]
         [--reps 3] [--e2e]
+
+Gather: chip_smoke.py's phase 2 case (512 windows of 32 kb from a 10 MB
+store) and one launch of E2E_GATHER (one problem a side at about the
+E2E run's median row lengths). Each is timed as device time (the C
+entry alone, descriptors uploaded once, GATHER_CALLS launches queued
+behind a spin on the device) and as the wrapper's time a call,
+descriptor packing and upload included. An older commit's one-sided
+gather_launch is timed the same way, one launch a side.
 
 Kernels: W = 64, the -xpacbio (combined) scores, the first B of 128
 seeded pairs of ~20 kb with ~12% edits (chip_smoke.py's phase 3 set),
 for each B of --batches: the traced and the untraced fill and the walk
 on the traced fill's buffers, each the median of --reps windows of
-CALLS calls timed with CUDA events. --e2e maps bench_e2e.make_workload's
-100 x 20 kb reads on a 5 Mb genome with -t1 -xpacbio: one warm-up,
-three timed runs (host clock, ending in a synchronize), then one under
-torch.profiler, whose device events give the busy share and the time
-per kernel.
+CALLS calls timed with CUDA events. --e2e maps
+bench_e2e.make_workload's 100 x 20 kb reads on a 5 Mb genome with -t1
+-xpacbio: one warm-up, three timed runs (host clock, ending in a
+synchronize), then one under torch.profiler, whose device events give
+the busy share, the time per kernel and the copies by direction.
 
---root DIR imports minialign_tpu_torch from DIR instead of this
-checkout, so that one call can time two commits on one card (unpack
-the other with git archive). Every result is one JSON line with the
-card's name and power limit.
+--batches "" leaves the fill and walk out. --root DIR imports
+minialign_tpu_torch from DIR instead of this checkout, so that one call
+can time two commits on one card (unpack the other with git archive).
+Every result is one JSON line with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import io  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
+import threading  # noqa: E402
 import time  # noqa: E402
 
 import numpy as np
@@ -43,6 +52,21 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E2E_READS = 100
 CALLS = 5       # kernel calls a timed window: ~15-30 ms at 20 kb
+GATHER_CALLS = 800   # launches a device-time window (the launch queue
+                     # holds ~1,000): ~10 ms at 512 x 32 kb
+WRAP_CALLS = 40      # wrapper calls a window (host-bound)
+E2E_GATHER = (1, 1, 40960, 20480)   # rows a side, row lengths
+SIDE = ("base", "start", "cap", "seglen", "wrap")
+
+# Rows that take every path of the gather kernel (csrc/gather.cu): a
+# window start at each residue mod 16, windows ending on or near the
+# store's last byte or past it, wrap below, at and above the segment
+# length and below 16, negative starts, cap 0 and past L, an empty
+# segment, a start at or past the segment end.
+GATHER_KINDS = ("residue", "store_end", "past_store_end", "wrap_lt",
+                "wrap_eq", "wrap_gt", "wrap_tiny", "neg_start",
+                "neg_start_wrap", "cap_0", "cap_gt_L", "seglen_0",
+                "start_ge_seglen")
 
 
 def mutate(rng, a, err=0.12):
@@ -71,6 +95,206 @@ def combined_scores(ScoreParams):
     return ScoreParams(matrix=tuple(2 if (i & 3) == (i >> 2) else -4
                                     for i in range(16)),
                        gi=4, ge=2, gfa=3, gfb=3, xdrop=50)
+
+
+def gather_store(rng, L):
+    """(flat int8 store of codes 0-4, segment bases, segment lengths):
+    four segments sized for rows of L columns, the last ending on the
+    store's last byte."""
+    lens = np.asarray([L // 2 + 7, 3 * L + 13, 2 * L + 5, 2 * L + 9])
+    bases = np.concatenate([[0], np.cumsum(lens[:-1])])
+    return rng.integers(0, 5, int(lens.sum())).astype(np.int8), bases, lens
+
+
+def gather_row(kind, rng, bases, lens, L, k=0):
+    """One row of GATHER_KINDS on gather_store's segments: (base, start,
+    cap, seglen, wrap). k: the residue mod 16 of the window's first byte
+    ("residue"), or how far a window ends before ("store_end") or past
+    ("past_store_end") the store's last byte."""
+    s = {"residue": 1, "store_end": 3, "past_store_end": 3, "wrap_lt": 1,
+         "wrap_tiny": 0, "neg_start": 1, "cap_gt_L": 1,
+         "start_ge_seglen": 0}.get(kind, 2)
+    base, seglen = int(bases[s]), int(lens[s])
+    start, cap, wrap = int(rng.integers(0, max(1, seglen - L - 16))), L, 0
+    if kind == "residue":
+        start += (k - base - start) % 16
+        cap = L - int(rng.integers(0, 24))
+    elif kind == "store_end":
+        start = seglen - L - k
+    elif kind == "past_store_end":
+        start = seglen - L + k + 1
+    elif kind == "wrap_lt":
+        wrap = seglen // 3
+        start = int(rng.integers(0, seglen))
+    elif kind == "wrap_eq":
+        wrap = seglen
+        start = seglen - int(rng.integers(1, L))
+    elif kind == "wrap_gt":
+        wrap = seglen + int(rng.integers(1, 100))
+        start = seglen - int(rng.integers(1, max(2, L // 2)))
+    elif kind == "wrap_tiny":
+        wrap = int(rng.integers(1, 40))
+    elif kind == "neg_start":
+        start = -int(rng.integers(1, 53))
+    elif kind == "neg_start_wrap":
+        wrap = seglen
+        start = -int(rng.integers(1, 2 * L))
+    elif kind == "cap_0":
+        cap = 0
+    elif kind == "cap_gt_L":
+        cap = L + int(rng.integers(1, 1000))
+    elif kind == "seglen_0":
+        seglen, start = 0, int(rng.integers(0, 50))
+    elif kind == "start_ge_seglen":
+        start = seglen + int(rng.integers(0, 40))
+    elif kind not in GATHER_KINDS:
+        raise ValueError(f"unknown gather row kind {kind!r}")
+    return base, start, cap, seglen, wrap
+
+
+def gather_side(rng, L, B, kinds=GATHER_KINDS):
+    """(store, side) for one side of a two-sided gather: gather_store at
+    L and B rows cycling through `kinds` from a random one (k random),
+    as the dict of per-row arrays that cuda_gather.pack_desc takes."""
+    flat, bases, lens = gather_store(rng, L)
+    k0 = int(rng.integers(0, len(kinds)))
+    rows = [gather_row(kinds[(k0 + r) % len(kinds)], rng, bases, lens, L,
+                       int(rng.integers(0, 16))) for r in range(B)]
+    side = dict(zip(SIDE, (np.asarray(x, np.int64) for x in zip(*rows))))
+    side["elen"] = np.minimum(side["cap"], L)
+    return flat, side
+
+
+def gather_big(seed=1):
+    """chip_smoke's phase 2 case: (flat store, side, L), 512 windows of
+    32 kb from a 5 Mb (forward + reverse) store, with the segment ends,
+    empty windows and circular windows among them."""
+    rng = np.random.default_rng(seed)
+    G = 5_000_000
+    flat = rng.integers(0, 5, 2 * G).astype(np.int8)
+    B, L = 512, 32768
+    base = rng.integers(0, 2, B) * G
+    start = rng.integers(0, G, B)
+    start[:4] = [G - 1, G, G - 100, 0]          # the store's segment ends
+    cap = rng.integers(L // 2, L + 1, B)
+    cap[4:8] = 0                                 # ln = 0
+    wrap = np.zeros(B, np.int64)
+    wrap[8:40] = G                               # circular windows
+    start[8:12] = G - rng.integers(1, 1000, 4)
+    side = dict(base=base, start=start, cap=cap, seglen=np.full(B, G),
+                wrap=wrap, elen=np.minimum(cap, L))
+    return flat, side, L
+
+
+def gather_read_bytes(side, L):
+    """Store bytes a gather must read: each row's selected columns."""
+    n = np.minimum(side["cap"], L)
+    stay = np.maximum(side["seglen"] - np.maximum(side["start"], 0), 0)
+    return int(np.where(side["wrap"] > 0, n, np.minimum(n, stay)).sum())
+
+
+def device_ms(torch, fn, reps=3, calls=GATHER_CALLS):
+    """Device ms a call of fn (one bare kernel launch through its C
+    entry, returning the CUDA error code): the median of `reps` windows
+    of `calls` launches between CUDA events, queued behind a spin on the
+    device (torch.cuda._sleep) so that a window holds the kernels back
+    to back and not the host's launch rate. One warm-up call first."""
+    if fn() != 0:
+        raise RuntimeError("kernel launch failed")
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int((2 * host + 0.002) * 2e9))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(calls):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ts.append(e0.elapsed_time(e1) / calls)
+    return sorted(ts)[len(ts) // 2]
+
+
+def gather_times(torch, stores, sides, Ls):
+    """(device ms a launch, wrapper ms a call, rows) of the loaded
+    package's gather on one or two sides (stores, sides and row lengths
+    as lists). This commit's gather_pair_launch takes both sides in one
+    launch; an older commit's gather_launch takes one launch a side. The
+    rows are checked against gather_plain."""
+    from minialign_tpu_torch import _build
+    from minialign_tpu_torch.dp import cuda_gather
+    lib = _build.library()
+    dev = stores[0].device
+    stream = _build.stream_of(stores[0])
+    outs = [torch.empty((len(s["base"]), L), dtype=torch.int8, device=dev)
+            for s, L in zip(sides, Ls)]
+    if hasattr(lib, "gather_pair_launch"):
+        sa, sb = stores[0], stores[-1]
+        Ba = len(sides[0]["base"])
+        Lb = Ls[-1] if len(sides) == 2 else 0
+        desc = torch.from_numpy(cuda_gather.pack_desc(sides)).to(dev)
+        args = (sa.data_ptr(), sa.numel(), sb.data_ptr(), sb.numel(),
+                desc.data_ptr(), Ba, len(desc) // cuda_gather.WORDS - Ba,
+                Ls[0], Lb, outs[0].data_ptr(), outs[-1].data_ptr(), stream)
+        launch = lambda: lib.gather_pair_launch(*args)  # noqa: E731
+
+        def wrapper():
+            blk = cuda_gather.upload(cuda_gather.pack_desc(sides), dev)
+            return cuda_gather.gather_pair(sa, sb, blk, Ba, Ls[0], Lb)
+    else:
+        metas = [[torch.as_tensor(s[k], dtype=torch.int64 if k == "base"
+                                  else torch.int32, device=dev)
+                  for k in SIDE] for s in sides]
+        calls = [(st.data_ptr(), *(m.data_ptr() for m in meta),
+                  len(s["base"]), L, o.data_ptr(), stream)
+                 for st, meta, s, L, o in zip(stores, metas, sides, Ls,
+                                              outs)]
+
+        def launch():
+            return max(lib.gather_launch(*c) for c in calls)
+
+        def wrapper():
+            return [cuda_gather.gather(st, *(s[k] for k in SIDE), L)
+                    for st, s, L in zip(stores, sides, Ls)]
+    ms = device_ms(torch, launch)
+    wrapper()                                     # warm-up: allocations
+    _, wms = timed(torch, wrapper, 3, WRAP_CALLS)
+    for st, s, L, o in zip(stores, sides, Ls, outs):
+        want = cuda_gather.gather_plain(st, *(s[k] for k in SIDE), L)
+        if not torch.equal(o, want):
+            raise RuntimeError("gather kernel != gather_plain")
+    return ms, wms, outs
+
+
+def gather_bench(torch, pkg, shape, emit):
+    """Emits the gather's times on gather_big and on one launch of
+    `shape` (Ba, Bb, La, Lb) of gather_side rows."""
+    from minialign_tpu_torch.dp import cuda_gather
+    dev = torch.device("cuda")
+    # an older commit has no pad_store: its kernel reads bytes singly
+    pad = getattr(cuda_gather, "pad_store", lambda f: f)
+    flat, side, L = gather_big()
+    store = torch.from_numpy(pad(flat)).to(dev)
+    ms, wms, _ = gather_times(torch, [store], [side], [L])
+    nbytes = len(side["base"]) * L + gather_read_bytes(side, L)
+    emit(kind="gather", pkg=pkg, rows=len(side["base"]), L=L, ms=ms,
+         wrapper_ms=wms, bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
+    Ba, Bb, La, Lb = shape
+    rng = np.random.default_rng(3)
+    stores, sides = [], []
+    for B, Lx in ((Ba, La), (Bb, Lb)):
+        f, s = gather_side(rng, Lx, B, kinds=("residue",))
+        stores.append(torch.from_numpy(pad(f)).to(dev))
+        sides.append(s)
+    ms, wms, _ = gather_times(torch, stores, sides, [La, Lb])
+    emit(kind="gather", pkg=pkg, rows=[Ba, Bb], L=[La, Lb], ms=ms,
+         wrapper_ms=wms)
 
 
 def timed(torch, fn, reps=1, calls=1):
@@ -132,7 +356,9 @@ def kernels(torch, pkg, batches, reps, emit):
 def device_busy(trace_path):
     """(busy ms, wall ms of the traced window, {kernel: [ms, launches]})
     from a chrome trace: device events are the kernels, copies and
-    sets; busy is the union of their intervals."""
+    sets; busy is the union of their intervals. Copies are keyed by
+    their event name, which gives direction and host memory kind
+    ("Memcpy HtoD (Pinned -> Device)")."""
     with open(trace_path) as f:
         ev = json.load(f)["traceEvents"]
     dev = [e for e in ev if e.get("ph") == "X" and e.get("cat") in (
@@ -148,15 +374,34 @@ def device_busy(trace_path):
             end = f
     per = {}
     for e in dev:
-        k = e["name"] if e["cat"] == "kernel" else e["cat"]
+        k = e["cat"] if e["cat"] == "gpu_memset" else e["name"]
         per.setdefault(k, [0.0, 0])
         per[k][0] += e["dur"] / 1e3
         per[k][1] += 1
     return busy / 1e3, (t1 - t0) / 1e3, per
 
 
+def profiled(torch, fn):
+    """device_busy of one call of fn() under torch.profiler (CPU and
+    CUDA activities)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        return device_busy(path)
+
+
+def h2d(per):
+    """Host-to-device copies of a device_busy table: (all, pageable)."""
+    n = {k: v[1] for k, v in per.items() if "HtoD" in k}
+    return sum(n.values()), sum(v for k, v in n.items() if "Pageable" in k)
+
+
 def e2e(torch, pkg, emit):
-    from minialign_tpu_torch import _build, cli
+    from minialign_tpu_torch import _build, cli, extend, native
     os.environ.update(BENCH_E2E_GENOME_MB="5", BENCH_E2E_READS=str(E2E_READS),
                       BENCH_E2E_READLEN="20000",
                       MINIALIGN_TORCH_DEVICE="cuda")
@@ -186,22 +431,37 @@ def e2e(torch, pkg, emit):
         t0 = time.time()
         run()
         walls.append(time.time() - t0)
+    # fill launches (batches) each FillEngine.run call holds, counted in
+    # the calling thread: align_batch's scheduler threads share the engine
+    runs, engine_run, engine_fill = [], extend.FillEngine.run, extend.fill
+    mine = threading.local()
+
+    def counted_fill(*args):
+        mine.n += 1
+        return engine_fill(*args)
+
+    def counted_run(self, reqs):
+        mine.n = 0
+        out = engine_run(self, reqs)
+        runs.append(mine.n)
+        return out
+
     _build.reset_counts()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        run()
+    extend.FillEngine.run, extend.fill = counted_run, counted_fill
+    try:
+        busy, wall, per = profiled(torch, run)
+    finally:
+        extend.FillEngine.run, extend.fill = engine_run, engine_fill
     batches = sorted(getattr(_build, "TRACED_FILL_B", []))
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        busy, wall, per = device_busy(path)
+    n_h2d, n_pageable = h2d(per)
     emit(kind="e2e", pkg=pkg, bases=nbases, first_s=first, walls_s=walls,
          mbases_per_s=[nbases / w / 1e6 for w in walls],
          profiled_wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
          launches=dict(_build.LAUNCHES), traced_fill_batches=batches,
          traced_fill_batch_median=(batches[len(batches) // 2]
                                    if batches else None),
+         fill_launches_per_engine_run=runs, host_library=native.available(),
+         h2d_copies=n_h2d, h2d_pageable=n_pageable,
          per_kernel_ms={k: round(v[0], 3) for k, v in per.items()},
          per_kernel_launches={k: v[1] for k, v in per.items()})
 
@@ -225,8 +485,10 @@ def main(argv=None):
     def emit(**kw):
         print(json.dumps(dict(kw, card=name)), flush=True)
 
-    kernels(torch, pkg, [int(x) for x in o.batches.split(",")], o.reps,
-            emit)
+    gather_bench(torch, pkg, E2E_GATHER, emit)
+    batches = [int(x) for x in o.batches.split(",") if x]
+    if batches:
+        kernels(torch, pkg, batches, o.reps, emit)
     if o.e2e:
         e2e(torch, pkg, emit)
     return 0

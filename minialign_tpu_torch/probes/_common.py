@@ -185,18 +185,22 @@ class Timed(NamedTuple):
     t2_ms: float
 
 
-def _once_ms(run: Callable[[], torch.Tensor], cuda: bool):
+def _window_ms(run: Callable[[], torch.Tensor], cuda: bool, calls: int = 1):
+    """(run()'s last output, ms a call): `calls` calls between CUDA
+    events, or on the host clock on the CPU."""
     if cuda:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = run()
+        for _ in range(calls):
+            out = run()
         e1.record()
         e1.synchronize()
-        return out, e0.elapsed_time(e1)
+        return out, e0.elapsed_time(e1) / calls
     t0 = time.perf_counter()
-    out = run()
-    return out, (time.perf_counter() - t0) * 1e3
+    for _ in range(calls):
+        out = run()
+    return out, (time.perf_counter() - t0) * 1e3 / calls
 
 
 def slope(run: Callable[[int], torch.Tensor], n: int, reps: int,
@@ -208,8 +212,8 @@ def slope(run: Callable[[int], torch.Tensor], n: int, reps: int,
     best = []
     out = None
     for steps in (n, 2 * n):
-        got, _ = _once_ms(lambda: run(steps), cuda)
-        ts = [_once_ms(lambda: run(steps), cuda)[1] for _ in range(reps)]
+        got, _ = _window_ms(lambda: run(steps), cuda)
+        ts = [_window_ms(lambda: run(steps), cuda)[1] for _ in range(reps)]
         best.append(min(ts))
         if steps == n:
             out = got
@@ -235,9 +239,11 @@ class Report:
     operations per output element): its bound moves the inputs and the
     output once and does the operations; its `library` is the one
     PyTorch call, where there is one, that computes the same function on
-    the same inputs, timed beside it."""
+    the same inputs, timed beside it. Kernel and library times are means
+    a call over WINDOW warm calls, wrapper overhead included in both."""
 
     CHECK_STEPS = (64, 2048)   # loops are compared at these step counts
+    WINDOW = 20                # calls a timed window of a compared case
 
     def __init__(self, device="cuda", out=None):
         self.device = resolve_device(device)
@@ -261,9 +267,13 @@ class Report:
         self.failures.append(name)
 
     def _compare(self, kernel: str, run, plain, work, library=None):
-        """(run()'s output, equal?, kernel ms, plain ms), CUDA events."""
-        got, ms = _once_ms(run, True)
-        want, pms = _once_ms(plain, True)
+        """(run()'s output, equal?, kernel ms, plain ms). The kernel's
+        run() and the library call are timed alike: one warm-up call,
+        then the mean a call over a window of WINDOW calls; the plain
+        twin once. CUDA events on the card, the host clock on the CPU."""
+        run()                                        # warm-up
+        got, ms = _window_ms(run, self.cuda, self.WINDOW)
+        want, pms = _window_ms(plain, self.cuda)
         st = self.stats.setdefault(kernel, dict(
             max_abs_err=0.0, ms=0.0, plain_ms=0.0, compared=0,
             bound_bytes_ms=0.0, bound_ops_ms=0.0, bound_ms=0.0,
@@ -280,8 +290,9 @@ class Report:
         st["bound_ops_ms"] += to
         st["bound_ms"] += max(tb, to)
         if library is not None:
-            _once_ms(library, True)                  # warm-up
-            st["library_ms"] += _once_ms(library, True)[1]
+            library()                                # warm-up
+            st["library_ms"] += _window_ms(library, self.cuda,
+                                           self.WINDOW)[1]
             st["library_kernel_ms"] += ms
             st["library_cases"] += 1
         ok = got.shape == want.shape and got.dtype == want.dtype and \

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from minialign_tpu_torch import _build
+from minialign_tpu_torch import _build, kbench
 from minialign_tpu_torch.dp import band, cuda_fill, cuda_gather, dtrace
 from minialign_tpu_torch.params import MapParams, ScoreParams
 from minialign_tpu_torch.probes import bf16ops, lowprec, subint32, wordstream
@@ -162,18 +162,43 @@ def test_fill_and_walk_kernels_max_in_last_block(W, dev):
 @pytest.mark.parametrize("wrap", [False, True])
 def test_gather_kernel_matches_plain(wrap, dev):
     rng = np.random.default_rng(3)
-    store = torch.from_numpy(rng.integers(0, 5, 50000).astype(np.int8)).to(dev)
+    flat = rng.integers(0, 5, 50000).astype(np.int8)
+    store = torch.from_numpy(cuda_gather.pad_store(flat)).to(dev)
     B, L = 64, 4096
-    base = rng.integers(0, 2, B) * 25000
     seglen = np.full(B, 25000)
     start = rng.integers(0, 25100, B)
     start[:3] = [0, 24990, 25000]
     cap = rng.integers(0, L + 100, B)
     cap[3] = 0
-    wr = seglen if wrap else np.zeros(B, np.int64)
-    got = cuda_gather.gather(store, base, start, cap, seglen, wr, L)
-    want = cuda_gather.gather_plain(store, base, start, cap, seglen, wr, L)
-    assert torch.equal(got, want)
+    side = dict(base=rng.integers(0, 2, B) * 25000, start=start, cap=cap,
+                seglen=seglen, wrap=seglen if wrap else np.zeros(B, np.int64),
+                elen=np.minimum(cap, L))
+    blk = torch.from_numpy(cuda_gather.pack_desc([side])).to(dev)
+    got = cuda_gather.gather_pair(store, store, blk, B, L, 0)
+    want = cuda_gather.gather_pair_plain(store, store, blk, B, L, 0)
+    assert torch.equal(got[0], want[0]) and got[1].shape == (0, 0)
+
+
+@pytest.mark.parametrize("padded", [True, False])
+@pytest.mark.parametrize("B", [1, 3, 64])
+@pytest.mark.parametrize("L", [128, 4096, 32768])
+def test_gather_pair_kernel_on_edge_cases(L, B, padded, dev):
+    """Both sides in one launch, each from its own store and at its own
+    L (side b at the next L of the list), rows cycling through every
+    edge case of kbench.GATHER_KINDS; equal to the plain two-sided form.
+    An unpadded store sends the vectors at its end down the byte path."""
+    rng = np.random.default_rng(L + B)
+    Ls = (128, 4096, 32768)
+    Lb = Ls[(Ls.index(L) + 1) % len(Ls)]
+    (fa, sa), (fb, sb) = (kbench.gather_side(rng, x, B) for x in (L, Lb))
+    sta, stb = (torch.from_numpy(cuda_gather.pad_store(f) if padded else f)
+                .to(dev) for f in (fa, fb))
+    blk = torch.from_numpy(cuda_gather.pack_desc([sa, sb])).to(dev)
+    _build.reset_counts()
+    got = cuda_gather.gather_pair(sta, stb, blk, B, L, Lb)
+    assert _build.LAUNCHES["gather"] == 1
+    want = cuda_gather.gather_pair_plain(sta, stb, blk, B, L, Lb)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_cli_golden_on_cuda(dev, monkeypatch):
@@ -187,6 +212,7 @@ def test_cli_golden_on_cuda(dev, monkeypatch):
     assert cli.main(["-t1", f"{DATA}/tref.fa", f"{DATA}/treads.fq"]) == 0
     assert all(_build.LAUNCHES[k] > 0 for k in ("fill", "gather", "dtrace")), \
         _build.LAUNCHES
+    assert _build.LAUNCHES["gather"] == _build.LAUNCHES["fill"]
     with open(f"{DATA}/ref_out.sam") as f:
         want = [x for x in f.read().splitlines() if not x.startswith("@PG")]
     assert [x for x in out.getvalue().splitlines()

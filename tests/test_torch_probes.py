@@ -16,6 +16,7 @@ after each op as torch does: `record_in_subprocess`.
 """
 
 import importlib.util
+import io
 import os
 import subprocess
 import sys
@@ -171,3 +172,28 @@ def test_probes_cli_on_cpu_never_imports_jax():
             with open(os.path.join(pkg, f)) as fh:
                 src = fh.read()
             assert "import jax" not in src and "from jax" not in src, f
+
+
+def test_report_times_run_and_library_alike():
+    """A Report's comparison calls the kernel's run() exactly as often as
+    the one PyTorch call: one warm-up, then a window of WINDOW calls
+    each (here on the CPU, on the host clock)."""
+    from minialign_tpu_torch.probes._common import Report
+    rep = Report(device="cpu", out=io.StringIO())
+    n = {"run": 0, "library": 0}
+    x = torch.arange(8, dtype=torch.int32)
+
+    def run():
+        n["run"] += 1
+        return x + x
+
+    def library():
+        n["library"] += 1
+        return torch.add(x, x)
+
+    got, ok, ms, _ = rep._compare("p1", run, lambda: x + x, ((x, x), 1),
+                                  library)
+    assert ok and torch.equal(got, x + x)
+    assert n["run"] == n["library"] == Report.WINDOW + 1
+    st = rep.stats["p1"]
+    assert st["library_cases"] == 1 and st["library_kernel_ms"] == ms
