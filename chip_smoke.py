@@ -32,8 +32,11 @@ Phases, in order; any failure exits non-zero before the result line:
      (minialign_tpu_torch.probes.run, i.e. python -m
      minialign_tpu_torch.probes): every case of the four JAX tools, each
      kernel exactly equal to its plain twin (loops at 64 and 2048 steps),
-     ns/step at the tools' own counts (the step timer also at 2^17
-     steps); then the step timer at B=1024
+     timed as device time and as a call's host time beside its one
+     PyTorch call, ns/step at the tools' own counts (the step timer also
+     at 2^17 steps); then P1 and P2 on kbench's edge inputs (the types'
+     ends, an odd size, misaligned views), and the step timer at B=128
+     and 1024, int16 also from inputs whose adds wrap
   8  neither jax nor minialign_tpu imported; the kernels' JSON line,
      then the result line
 
@@ -518,7 +521,7 @@ def main():
 
     # ---- 7: the probes' entry point, then the step timer at B=1024
     from minialign_tpu_torch import probes
-    from minialign_tpu_torch.probes import lowprec
+    from minialign_tpu_torch.probes import lowprec, subint32
     say("[7] probes P1-P4: python -m minialign_tpu_torch.probes")
     _build.reset_counts()
     torch.cuda.synchronize()
@@ -533,36 +536,75 @@ def main():
              f"{ {k: launches[k] for k in PROBES} }")
     for k in PROBES:
         st = rep.stats[k]
-        lib = st["library_ms"] if st["library_cases"] else None
+        n_lib = st["library_cases"]
         stats[k].update(
             max_abs_err=st["max_abs_err"], ms=st["ms"],
-            plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            device_ms=st["device_ms"], plain_ms=st["plain_ms"],
+            bound_ms=st["bound_ms"],
             bound_by="bytes" if st["bound_bytes_ms"] >= st["bound_ops_ms"]
-            else "operations", library_ms=lib)
-        libs = (f"one PyTorch call {lib:.3f} ms against the kernel's "
-                f"{st['library_kernel_ms']:.3f} ms on the "
-                f"{st['library_cases']} cases that have one") if lib else \
+            else "operations",
+            library_ms=st["library_ms"] if n_lib else None,
+            library_device_ms=st["library_device_ms"] if n_lib else None,
+            library_kernel_device_ms=st["library_kernel_device_ms"]
+            if n_lib else None)
+        libs = (f"on the {n_lib} cases that are one PyTorch call, kernel "
+                f"{st['library_kernel_device_ms']:.5f} ms device, "
+                f"{st['library_kernel_ms']:.5f} ms a call (host), against "
+                f"{st['library_device_ms']:.5f} and "
+                f"{st['library_ms']:.5f} ms") if n_lib else \
             "no case is one PyTorch call"
         say(f"[7] {k}: {st['compared']} runs equal to the plain twin; "
-            f"kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.1f} ms, "
-            f"{show(stats[k])} in all (loops at 64 and 2048 steps); {libs}; "
-            f"launches {launches[k]}")
+            f"kernel {st['device_ms']:.5f} ms device, {st['ms']:.5f} ms a "
+            f"call (host), plain {st['plain_ms']:.1f} ms, {show(stats[k])} "
+            f"in all (loops at 64 and 2048 steps); {libs}; launches "
+            f"{launches[k]}")
     say(f"[7] probes: every case equal ({wall:.1f} s) on {card}")
+    # P1 and P2 on their edge inputs: the types' ends, an odd size, views
+    # one value past an aligned start (the kernel's scalar path)
+    rng = np.random.default_rng(7)
+    n_edge = 0
+    for mod, fn, carry, dtypes in (
+            (subint32, subint32.probe, subint32.probe_carry,
+             subint32.DTYPES),
+            (lowprec, lowprec.elementwise, lowprec.in_carry,
+             lowprec.DTYPES)):
+        for dt in dtypes:
+            for kind in kbench.PROBE_EDGE_KINDS:
+                for op in mod.BINOPS:
+                    for f in (fn, carry):
+                        x, y = kbench.probe_edge_pair(rng, dt, kind, dev)
+                        got, want = f(op, x, y, dev), f(op, x, y, "cpu")
+                        if not torch.equal(got.cpu(), want):
+                            fail(f"{f.__module__}.{f.__name__} {dt} {op} "
+                                 f"on {kind} edges: kernel != plain")
+                        n_edge += 1
+    say(f"[7] P1 and P2 equal to plain on {n_edge} edge runs: every op, "
+        f"alone and in the carry, at the types' ends "
+        f"({', '.join(kbench.PROBE_EDGE_KINDS)})")
     rng = np.random.default_rng(1)
     for dt in lowprec.STEP_DTYPES:
-        x, dd = lowprec.step_inputs(rng, dt, dev, B=1024)
-        for n in (64, lowprec.STEPS):
-            got, ms = timed(torch, lambda: lowprec.step_loop(x, dd, n, dev))
-            want, pms = timed(torch, lambda: lowprec.step_timer_plain(x, dd,
-                                                                       n))
-            if not torch.equal(got, want):
-                fail(f"step timer {dt} B=1024 {n} steps: kernel != plain")
+        for B in (128, 1024):
+            cases = [lowprec.step_inputs(rng, dt, dev, B=B)]
+            if dt == "int16":                        # adds that wrap
+                cases.append(lowprec.step_inputs(rng, dt, dev, B,
+                                                 *lowprec.WRAP_RANGE))
+            for x, dd in cases:
+                for n in (64, lowprec.STEPS):
+                    got, ms = timed(torch, lambda: lowprec.step_loop(
+                        x, dd, n, dev))
+                    want, pms = timed(torch, lambda: lowprec.step_timer_plain(
+                        x, dd, n))
+                    if not torch.equal(got, want):
+                        fail(f"step timer {dt} B={B} {n} steps: kernel != "
+                             f"plain")
+        x, dd = cases[0]
         ns = [lowprec.step_timer(x, dd, k, dev).ns_per_step
               for k in (lowprec.STEPS, lowprec.LONG_STEPS)]
         say(f"[7] step timer {dt} W=64 B=1024: {ns[0]:.1f} ns/step at "
             f"{lowprec.STEPS} steps, {ns[1]:.1f} at {lowprec.LONG_STEPS} "
-            f"(kernel equal to plain at 64 and {n} steps; at {n} steps "
-            f"kernel {ms:.3f} ms, plain {pms:.1f} ms) on {card}")
+            f"(kernel equal to plain at 64 and {n} steps at B 128 and 1024"
+            f"{', and from inputs that wrap' if dt == 'int16' else ''}; at "
+            f"{n} steps kernel {ms:.3f} ms, plain {pms:.1f} ms) on {card}")
 
     # ---- 8
     bad = sorted(m for m in sys.modules

@@ -57,16 +57,17 @@ _SIGS = {
                            _P],
     "dtrace_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P,
                       _P, _P, _I, _P],
-    "p1_probe_launch": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "p2_elementwise_launch": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "p2_roll_concat_launch": [_P, _P, _I, _I, _I, _P, _P],
-    "p2_step_timer_launch": [_P, _P, _I, _I, _I, _P, _P],
-    "p3_run2_launch": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "p3_timing_launch": [_P, _I, _I, _I, _P, _P],
-    "p4_var_shift_launch": [_P, _P, _I, _P, _P],
-    "p4_div10_launch": [_P, _I, _P, _P],
-    "p4_roll_in_carry_launch": [_P, _I, _I, _P, _P],
-    "p4_stream_launch": [_P, _P, _P, _I, _I, _P, _P],
+    # the probes' entries end in (device index, stream)
+    "p1_probe_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
+    "p2_elementwise_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
+    "p2_roll_concat_launch": [_P, _P, _I, _I, _I, _P, _I, _P],
+    "p2_step_timer_launch": [_P, _P, _I, _I, _I, _P, _I, _P],
+    "p3_run2_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
+    "p3_timing_launch": [_P, _I, _I, _I, _P, _I, _P],
+    "p4_var_shift_launch": [_P, _P, _I, _P, _I, _P],
+    "p4_div10_launch": [_P, _I, _P, _I, _P],
+    "p4_roll_in_carry_launch": [_P, _I, _I, _P, _I, _P],
+    "p4_stream_launch": [_P, _P, _P, _I, _I, _P, _I, _P],
 }
 
 

@@ -107,9 +107,11 @@ timing_kernel(const T* __restrict__ x, int B, int steps,
 
 // x, y: (R, C) of the dtype; out (R, C) float32.
 extern "C" int p3_run2_launch(const void* x, const void* y, int R, int C,
-                              int dtype, int op, void* out, void* stream) {
+                              int dtype, int op, void* out, int device,
+                              void* stream) {
   if (R <= 0 || C <= 0) return (int)cudaSuccess;
   if (op < 0 || op > 9) return (int)cudaErrorInvalidValue;
+  const DeviceGuard on(device);
   const int n = R * C;
   const bool ok = dispatch(dtype, [&](auto tag) {
     using T = typename decltype(tag)::type;
@@ -123,8 +125,9 @@ extern "C" int p3_run2_launch(const void* x, const void* y, int R, int C,
 
 // x: (64, B) of the dtype; out (64, B) float32.
 extern "C" int p3_timing_launch(const void* x, int B, int dtype, int steps,
-                                void* out, void* stream) {
+                                void* out, int device, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
+  const DeviceGuard on(device);
   const bool ok = dispatch(dtype, [&](auto tag) {
     using T = typename decltype(tag)::type;
     timing_kernel<T><<<(B + WARPS - 1) / WARPS, WARPS * 32, 0,

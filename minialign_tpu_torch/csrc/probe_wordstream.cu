@@ -114,8 +114,9 @@ inline int grid(int n) { return (n + THREADS - 1) / THREADS; }
 
 // w, s, out: n int32 each.
 extern "C" int p4_var_shift_launch(const void* w, const void* s, int n,
-                                   void* out, void* stream) {
+                                   void* out, int device, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  const DeviceGuard on(device);
   var_shift_kernel<<<grid(n), THREADS, 0, as_stream(stream)>>>(
       static_cast<const int32_t*>(w), static_cast<const int32_t*>(s), n,
       static_cast<int32_t*>(out));
@@ -123,8 +124,9 @@ extern "C" int p4_var_shift_launch(const void* w, const void* s, int n,
 }
 
 extern "C" int p4_div10_launch(const void* x, int n, void* out,
-                               void* stream) {
+                               int device, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  const DeviceGuard on(device);
   div10_kernel<<<grid(n), THREADS, 0, as_stream(stream)>>>(
       static_cast<const int32_t*>(x), n, static_cast<int32_t*>(out));
   return (int)cudaGetLastError();
@@ -132,8 +134,10 @@ extern "C" int p4_div10_launch(const void* x, int n, void* out,
 
 // w, out: (8, C) int32.
 extern "C" int p4_roll_in_carry_launch(const void* w, int C, int rounds,
-                                       void* out, void* stream) {
+                                       void* out, int device,
+                                       void* stream) {
   if (C <= 0) return (int)cudaSuccess;
+  const DeviceGuard on(device);
   roll_in_carry_kernel<<<grid(C), THREADS, 0, as_stream(stream)>>>(
       static_cast<const int32_t*>(w), C, rounds, static_cast<int32_t*>(out));
   return (int)cudaGetLastError();
@@ -142,8 +146,9 @@ extern "C" int p4_roll_in_carry_launch(const void* w, int C, int rounds,
 // wa, wb: (8, C) int32; d: (C,) int32; out: (C,) int32.
 extern "C" int p4_stream_launch(const void* wa, const void* wb,
                                 const void* d, int C, int steps, void* out,
-                                void* stream) {
+                                int device, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
+  const DeviceGuard on(device);
   stream_kernel<<<grid(C), THREADS, 0, as_stream(stream)>>>(
       static_cast<const int32_t*>(wa), static_cast<const int32_t*>(wb),
       static_cast<const int32_t*>(d), C, steps, static_cast<int32_t*>(out));

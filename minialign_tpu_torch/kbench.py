@@ -1,8 +1,9 @@
 """Times the gather (K2), fill (K1) and walk (K3) kernels at the main
-path's shapes, and profiles the end-to-end run, on one CUDA card.
+path's shapes, the step-mix probes (P1-P4), and profiles the end-to-end
+run, on one CUDA card.
 
     python minialign_tpu_torch/kbench.py [--root DIR] [--batches 128,8]
-        [--reps 3] [--e2e]
+        [--reps 3] [--e2e] [--probes]
 
 Gather: chip_smoke.py's phase 2 case (512 windows of 32 kb from a 10 MB
 store) and one launch of E2E_GATHER (one problem a side at about the
@@ -21,6 +22,16 @@ bench_e2e.make_workload's 100 x 20 kb reads on a 5 Mb genome with -t1
 -xpacbio: one warm-up, three timed runs (host clock, ending in a
 synchronize), then one under torch.profiler, whose device events give
 the busy share, the time per kernel and the copies by direction.
+
+--probes times every one-call case of the probes' mains at the tools'
+shapes (P1-P4, inputs from seed 0): each case's wrapper and its one
+PyTorch call, where there is one, as device time (device_ms, PROBE_CALLS
+calls a window) and as a call's host-inclusive time (CUDA events around
+PROBE_CALLS calls, as probes._common.Report does), the result held to
+the plain twin; the sums per probe; the probe wrapper's stages
+(time.perf_counter_ns over STAGE_CALLS calls each); the P2 step timer's
+ns/step by slope in every dtype at B in STEP_B and n in STEP_COUNTS; and
+the instruction counts of the probe kernels (cuobjdump -sass).
 
 --batches "" leaves the fill and walk out. --root DIR imports
 minialign_tpu_torch from DIR instead of this checkout, so that one call
@@ -42,10 +53,13 @@ import argparse  # noqa: E402
 import contextlib  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
+import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import threading  # noqa: E402
 import time  # noqa: E402
+from functools import partial  # noqa: E402
 
 import numpy as np
 
@@ -57,6 +71,10 @@ GATHER_CALLS = 800   # launches a device-time window (the launch queue
 WRAP_CALLS = 40      # wrapper calls a window (host-bound)
 E2E_GATHER = (1, 1, 40960, 20480)   # rows a side, row lengths
 SIDE = ("base", "start", "cap", "seglen", "wrap")
+PROBE_CALLS = 20     # calls a probe window (probes._common.Report.WINDOW)
+STAGE_CALLS = 2000   # calls a wrapper stage is timed over
+STEP_B = (128, 1024)                 # step timer columns
+STEP_COUNTS = (2048, 2**17)          # step timer n (slope to 2 n)
 
 # Rows that take every path of the gather kernel (csrc/gather.cu): a
 # window start at each residue mod 16, windows ending on or near the
@@ -194,12 +212,15 @@ def gather_read_bytes(side, L):
 
 
 def device_ms(torch, fn, reps=3, calls=GATHER_CALLS):
-    """Device ms a call of fn (one bare kernel launch through its C
-    entry, returning the CUDA error code): the median of `reps` windows
-    of `calls` launches between CUDA events, queued behind a spin on the
-    device (torch.cuda._sleep) so that a window holds the kernels back
-    to back and not the host's launch rate. One warm-up call first."""
-    if fn() != 0:
+    """Device ms a call of fn (a bare kernel launch through its C entry,
+    returning the CUDA error code, or a wrapper or PyTorch call that
+    returns a tensor): the median of `reps` windows of `calls` calls
+    between CUDA events, queued behind a spin on the device
+    (torch.cuda._sleep, twice the host's time for a window plus 2 ms) so
+    that a window holds the kernels back to back and not the host's
+    launch rate. One warm-up call first."""
+    rc = fn()
+    if isinstance(rc, int) and rc != 0:
         raise RuntimeError("kernel launch failed")
     torch.cuda.synchronize()
     ts = []
@@ -312,6 +333,283 @@ def timed(torch, fn, reps=1, calls=1):
         torch.cuda.synchronize()
         ts.append(e0.elapsed_time(e1) / calls)
     return out, sorted(ts)[len(ts) // 2]
+
+
+# P1's and P2's edge inputs, shared by the CPU tests (against the JAX
+# tools), the card tests and chip_smoke.py: values at the types' edges
+# (probe_edge_values), a shape whose size is no multiple of 16, and
+# views one value past an aligned start (the kernel's scalar path).
+PROBE_EDGE_KINDS = ("extreme", "odd", "offset")
+PROBE_ODD_SHAPE = (7, 37)
+# by dtype, two ranges; each value is drawn from one of them at random:
+# int8 and int16 at both ends (adds wrap, compares cross the sign), uint8
+# on both sides of 128 (compares are unsigned), int32 at both ends, bf16
+# and float32 integers whose sums round to the type
+PROBE_EDGE_RANGES = {
+    "int8": ((-128, -100), (100, 128)),
+    "uint8": ((0, 128), (128, 256)),
+    "int16": ((-32768, -32700), (32700, 32768)),
+    "int32": ((-2**31, -2**31 + 1000), (2**31 - 1000, 2**31)),
+    "bfloat16": ((-3000, -200), (200, 3000)),
+    "float32": ((-2**25, -2**24), (2**24, 2**25)),
+}
+
+
+def probe_edge_values(rng, dtype, shape):
+    """Integers (numpy int64) of `shape`, each from one of dtype's two
+    PROBE_EDGE_RANGES at random."""
+    (a, b), (c, d) = PROBE_EDGE_RANGES[dtype]
+    return np.where(rng.random(shape) < 0.5, rng.integers(a, b, shape),
+                    rng.integers(c, d, shape))
+
+
+def probe_edge_pair(rng, dtype, kind, device, shape=(64, 128)):
+    """x, y for P1 / P2 of an edge kind: "extreme" probe_edge_values at
+    `shape`, "odd" at PROBE_ODD_SHAPE, "offset" at `shape` as views that
+    start one value into their storage (not 16-byte aligned)."""
+    from minialign_tpu_torch.probes._common import tensor
+    if kind not in PROBE_EDGE_KINDS:
+        raise ValueError(f"unknown edge kind {kind!r}")
+    if kind == "odd":
+        shape = PROBE_ODD_SHAPE
+    n = int(np.prod(shape))
+    out = []
+    for _ in range(2):
+        if kind == "offset":
+            t = tensor(probe_edge_values(rng, dtype, (n + 1,)), dtype, device)
+            out.append(t[1:].view(shape))
+        else:
+            out.append(tensor(probe_edge_values(rng, dtype, shape), dtype,
+                              device))
+    return out
+
+
+def probe_cases(dev, rng):
+    """(probe, case, run, library or None, plain) for every one-call case
+    of the probes' mains (P1: probe_subint32's 18, P2: probe_lowprec's
+    30, P3: probe_bf16ops' 10, P4: probe_wordstream's 3 primitives), at
+    the tools' shapes, inputs drawn from rng as the mains draw them."""
+    from minialign_tpu_torch.probes import (_common, bf16ops, lowprec,
+                                            subint32, wordstream)
+    lib = _common.LIBRARY_BINOP
+    cases = []
+    for dt in subint32.DTYPES:
+        for op in subint32.BINOPS:
+            x, y = _common.inputs(rng, dt, dev, *subint32.RANGE)
+            cases.append(("p1", f"{dt} {op}",
+                          partial(subint32.probe, op, x, y, dev),
+                          partial(lib[op], x, y),
+                          partial(subint32.probe_plain, op, x, y)))
+        for op in subint32.CARRY_OPS:
+            x, y = _common.inputs(rng, dt, dev, *subint32.RANGE)
+            cases.append(("p1", f"carry {dt} {op}",
+                          partial(subint32.probe_carry, op, x, y, dev), None,
+                          partial(subint32.probe_carry_plain, op, x, y)))
+    for dt in lowprec.DTYPES:
+        for op in lowprec.BINOPS:
+            x, y = _common.inputs(rng, dt, dev)
+            cases.append(("p2", f"{dt} {op}",
+                          partial(lowprec.elementwise, op, x, y, dev),
+                          partial(lib[op], x, y),
+                          partial(lowprec.elementwise_plain, op, x, y)))
+        x, y = _common.inputs(rng, dt, dev)
+        cases.append(("p2", f"{dt} max-in-carry",
+                      partial(lowprec.in_carry, "maximum", x, y, dev), None,
+                      partial(lowprec.in_carry_plain, "maximum", x, y)))
+        x, y = _common.inputs(rng, dt, dev)
+        cases.append(("p2", f"{dt} roll-sel-in-carry",
+                      partial(lowprec.roll_concat, x, y, dev), None,
+                      partial(lowprec.roll_concat_plain, x, y)))
+    for op, name, dt in bf16ops.OPS:
+        x, y = _common.inputs(rng, dt, dev)
+        one = bf16ops.LIBRARY.get(op)
+        cases.append(("p3", name, partial(bf16ops.run2, op, x, y, dev),
+                      one and partial(one, x, y),
+                      partial(bf16ops.run2_plain, op, x, y)))
+    shape = wordstream.SHAPE
+    w = _common.tensor(rng.integers(0, 2**30, shape), "int32", dev)
+    s = _common.tensor(rng.integers(0, 10, shape), "int32", dev)
+    v = _common.tensor(rng.integers(0, 2**18, shape), "int32", dev)
+    for name, fn, args in (("var_shift", wordstream.var_shift, (w, s)),
+                           ("roll_in_carry", wordstream.roll_in_carry, (w,)),
+                           ("div10_magic", wordstream.div10_magic, (v,))):
+        cases.append(("p4", name, partial(fn, *args, device=dev), None,
+                      partial(getattr(wordstream, f"{name}_plain"), *args)))
+    return cases
+
+
+def probes_bench(torch, pkg, emit):
+    """Emits each case of probe_cases (device and host-inclusive ms a
+    call of the wrapper and of its one PyTorch call, the result held to
+    the plain twin), then the sums per probe over all its cases and over
+    the cases that have a PyTorch call."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sums = {}
+    for probe, case, run, library, plain in probe_cases(
+            dev, np.random.default_rng(0)):
+        got = run()
+        row = dict(kernel=probe, case=case,
+                   equal=bool(torch.equal(got, plain())),
+                   device_ms=device_ms(torch, run, calls=PROBE_CALLS),
+                   host_ms=timed(torch, run, 3, PROBE_CALLS)[1])
+        if library is not None:
+            library()
+            row.update(library_device_ms=device_ms(torch, library,
+                                                   calls=PROBE_CALLS),
+                       library_host_ms=timed(torch, library, 3,
+                                             PROBE_CALLS)[1])
+        emit(kind="probe", pkg=pkg, **row)
+        s = sums.setdefault(probe, dict(
+            cases=0, equal=0, device_ms=0.0, host_ms=0.0, library_cases=0,
+            kernel_device_ms=0.0, kernel_host_ms=0.0, library_device_ms=0.0,
+            library_host_ms=0.0))
+        s["cases"] += 1
+        s["equal"] += row["equal"]
+        s["device_ms"] += row["device_ms"]
+        s["host_ms"] += row["host_ms"]
+        if library is not None:
+            s["library_cases"] += 1
+            s["kernel_device_ms"] += row["device_ms"]
+            s["kernel_host_ms"] += row["host_ms"]
+            s["library_device_ms"] += row["library_device_ms"]
+            s["library_host_ms"] += row["library_host_ms"]
+    for probe, s in sums.items():
+        lc = s["library_cases"]
+        emit(kind="probe_sum", pkg=pkg, kernel=probe, **s, **(dict(
+            device_ratio=s["kernel_device_ms"] / s["library_device_ms"],
+            host_ratio=s["kernel_host_ms"] / s["library_host_ms"])
+            if lc else {}))
+
+
+def stage_ns(torch, fn, calls=None):
+    """ns a call of fn over `calls` calls on the host clock
+    (time.perf_counter_ns), after one warm-up call and a synchronize."""
+    calls = calls or STAGE_CALLS
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    ns = (time.perf_counter_ns() - t0) / calls
+    torch.cuda.synchronize()
+    return ns
+
+
+def wrapper_stages(torch, pkg, emit):
+    """Emits the host ns a call of each stage of the probe wrapper on P1's
+    int8 add at (64, 128), of the whole wrapper, of torch.add on the same
+    tensors and of an empty call ("loop", the timing loop's own cost).
+    The stages are those of the loaded package's launch path: the older
+    one (on, on_kernel, torch.empty, the torch.cuda.device context, the
+    Stream object's handle, the ctypes call) or the thin one (on,
+    kernel_for, the checks, torch.empty_like, the device index, the entry
+    lookup, the raw stream handle, the ctypes call); count and check in
+    both."""
+    from minialign_tpu_torch import _build
+    from minialign_tpu_torch.probes import _common, subint32
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x, y = _common.inputs(np.random.default_rng(2), "int8", dev,
+                          *subint32.RANGE)
+    lib = _build.library()
+    out = torch.empty(x.shape, dtype=torch.int32, device=dev)
+    code = _common.CODE[x.dtype]
+    ptrs = (x.data_ptr(), y.data_ptr(), x.numel(), code, 0, 0,
+            out.data_ptr())
+    st = {"loop": lambda: None, "on": lambda: _common.on(dev, x, y)}
+    if hasattr(_common, "raw_stream"):           # the thin launch path
+        idx = x.get_device()
+        fn = _common.entry("p1_probe_launch")
+        stream = _common.raw_stream(idx)
+        st.update({
+            "kernel_for": lambda: _common.kernel_for(x),
+            "checks": lambda: _common.binop_checks("p1", "add", x, y),
+            "torch.empty_like": lambda: torch.empty_like(
+                x, dtype=torch.int32),
+            "data_ptr x3": lambda: (x.data_ptr(), y.data_ptr(),
+                                    out.data_ptr()),
+            "get_device": lambda: x.get_device(),
+            "entry lookup": lambda: _common.entry("p1_probe_launch"),
+            "stream lookup": lambda: _common.raw_stream(idx),
+            "ctypes call": lambda: fn(*ptrs, idx, stream)})
+    else:                                        # the older launch path
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def context():
+            with torch.cuda.device(dev):
+                pass
+        st.update({
+            "on_kernel": lambda: _common.on_kernel(dev),
+            "torch.empty": lambda: torch.empty(x.shape, dtype=torch.int32,
+                                               device=x.device),
+            "data_ptr x3": lambda: (x.data_ptr(), y.data_ptr(),
+                                    out.data_ptr()),
+            "device context": context,
+            "stream lookup": lambda: torch.cuda.current_stream(
+                dev).cuda_stream,
+            "ctypes call": lambda: lib.p1_probe_launch(*ptrs, stream)})
+    st.update({"count": lambda: _build.count("p1"),
+               "check": lambda: _build.check(lib, 0, "p1"),
+               "wrapper": lambda: subint32.probe("add", x, y, dev),
+               "torch.add": lambda: torch.add(x, y)})
+    emit(kind="wrapper_stages", pkg=pkg, case="p1 int8 add (64, 128)",
+         calls=STAGE_CALLS, ns={k: stage_ns(torch, f) for k, f in st.items()})
+    _build.reset_counts()
+
+
+def step_bench(torch, pkg, emit):
+    """Emits the P2 step timer's ns/step (lowprec.step_timer: slope
+    between n and 2 n, fastest of its reps) for each dtype of
+    lowprec.STEP_DTYPES at each B of STEP_B and n of STEP_COUNTS, after
+    holding the kernel to step_timer_plain at 64 steps."""
+    from minialign_tpu_torch.probes import lowprec
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(3)
+    for dt in lowprec.STEP_DTYPES:
+        for B in STEP_B:
+            x, dd = lowprec.step_inputs(rng, dt, dev, B)
+            equal = bool(torch.equal(lowprec.step_loop(x, dd, 64, dev),
+                                     lowprec.step_timer_plain(x, dd, 64)))
+            ts = {n: lowprec.step_timer(x, dd, n, dev) for n in STEP_COUNTS}
+            emit(kind="step_timer", pkg=pkg, dtype=dt, B=B,
+                 equal_at_64=equal,
+                 ns_per_step={n: t.ns_per_step for n, t in ts.items()},
+                 t1_ms={n: t.t1_ms for n, t in ts.items()})
+
+
+def sass_counts(pkg, emit):
+    """Emits, for each probe kernel of the loaded package's library
+    (binop_kernel, roll_concat, step_timer), its SASS instruction count
+    and opcode histogram (cuobjdump -sass; names demangled by cu++filt
+    where the toolkit has it)."""
+    from minialign_tpu_torch import _build
+    bins = [shutil.which(t) or f"/usr/local/cuda/bin/{t}"
+            for t in ("cuobjdump", "cu++filt")]
+    if not os.path.exists(bins[0]):
+        emit(kind="sass", pkg=pkg, error="no cuobjdump")
+        return
+    text = subprocess.run([bins[0], "-sass", _build.LIB], capture_output=True,
+                          text=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if re.search(
+                r"binop|roll_concat|step_timer", m.group(1)) else None
+            if cur:
+                funcs[cur] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                     line)
+        if cur and m:
+            funcs[cur][m.group(1)] = funcs[cur].get(m.group(1), 0) + 1
+    names = list(funcs)
+    if names and os.path.exists(bins[1]):
+        r = subprocess.run([bins[1]], input="\n".join(names),
+                           capture_output=True, text=True, timeout=60)
+        names = r.stdout.splitlines() or names
+    for name, ops in zip(names, funcs.values()):
+        emit(kind="sass", pkg=pkg, function=name, n=sum(ops.values()),
+             ops=dict(sorted(ops.items(), key=lambda kv: -kv[1])))
 
 
 def card():
@@ -472,6 +770,7 @@ def main(argv=None):
     ap.add_argument("--batches", default="128,8")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--e2e", action="store_true")
+    ap.add_argument("--probes", action="store_true")
     o = ap.parse_args(argv)
     root = os.path.abspath(o.root)
     sys.path.insert(0, root)
@@ -491,6 +790,11 @@ def main(argv=None):
         kernels(torch, pkg, batches, o.reps, emit)
     if o.e2e:
         e2e(torch, pkg, emit)
+    if o.probes:
+        probes_bench(torch, pkg, emit)
+        wrapper_stages(torch, pkg, emit)
+        step_bench(torch, pkg, emit)
+        sass_counts(pkg, emit)
     return 0
 
 

@@ -36,7 +36,8 @@ def run(names=tuple(PROBES), device="cuda", seed: int = 0,
         out=None) -> Report:
     """Run the named probes on `device` (resolve_device: raises when CUDA
     is asked for and absent) with inputs from default_rng(seed). Returns
-    the Report (its status is the exit status)."""
+    the Report (its status is the exit status); its summary line per
+    probe ends the output."""
     rep = Report(device, out)
     where = torch.cuda.get_device_name(rep.device) if rep.cuda else "cpu"
     rep.say(f"torch {torch.__version__}, device {rep.device} ({where})")
@@ -44,4 +45,5 @@ def run(names=tuple(PROBES), device="cuda", seed: int = 0,
     for name in names:
         rep.say(f"== {name}")
         PROBES[name].main(rep, rng)
+    rep.summary()
     return rep

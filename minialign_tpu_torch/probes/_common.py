@@ -29,8 +29,9 @@ DTYPES = {
 }
 CODE = {dt: code for dt, code in DTYPES.values()}
 
-# the binary ops of P1 and P2, in csrc/probe_common.cuh:binop's order
+# the binary ops of P1 and P2, in csrc/probe_common.cuh:Op's order
 BINOPS = ("add", "maximum", "compare-gt", "select")
+OP_CODE = {op: i for i, op in enumerate(BINOPS)}
 
 SHAPE = (64, 128)      # the cases of P1-P3
 W = 64                 # rows of the loop kernels (two per thread)
@@ -81,24 +82,34 @@ def carry_plain(op: str, x: torch.Tensor, y: torch.Tensor,
     return c
 
 
-def binop(kernel: str, entry: str, out_dtype: torch.dtype, op: str, x, y,
-          device, rounds: int) -> torch.Tensor:
+def binop(kernel: str, entry_name: str, out_dtype: torch.dtype, op: str,
+          x, y, device, rounds: int) -> torch.Tensor:
     """P1's and P2's elementwise kernel (csrc/probe_common.cuh:
-    binop_kernel) through `entry`: op(x, y) for rounds = 0, else the
-    carry; as out_dtype. The plain twins on the CPU."""
+    binop_kernel) through the C entry `entry_name`: op(x, y) for
+    rounds = 0, else the carry; as out_dtype. The plain twins on CPU
+    tensors."""
     x, y = on(device, x, y)
-    if not on_kernel(device):
+    if not kernel_for(x):
         r = binop_plain(op, x, y) if rounds == 0 else \
             carry_plain(op, x, y, rounds)
         return r.to(out_dtype)
-    if op not in BINOPS:
+    opc = binop_checks(kernel, op, x, y)
+    out = torch.empty_like(x, dtype=out_dtype)
+    launch(kernel, entry_name, x.get_device(), x.data_ptr(), y.data_ptr(),
+           x.numel(), code(x), opc, rounds, out.data_ptr())
+    return out
+
+
+def binop_checks(kernel: str, op: str, x: torch.Tensor,
+                 y: torch.Tensor) -> int:
+    """The op's code; raises for an unknown op or for x and y of
+    different shapes or dtypes."""
+    opc = OP_CODE.get(op)
+    if opc is None:
         raise ValueError(f"unknown op {op!r}; one of {BINOPS}")
     if x.shape != y.shape or x.dtype != y.dtype:
         raise ValueError(f"{kernel}: x and y differ in shape or dtype")
-    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    launch(kernel, entry, x, y, x.numel(), code(x), BINOPS.index(op),
-           rounds, out)
-    return out
+    return opc
 
 
 def tensor(x, dtype: str, device) -> torch.Tensor:
@@ -137,43 +148,72 @@ def columns(x: torch.Tensor, what: str) -> int:
 
 
 def on(device, *xs) -> tuple[torch.Tensor, ...]:
-    """Tensors (numpy arrays taken as they are typed) moved to the
-    device, contiguous."""
-    return tuple((x if isinstance(x, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(x))).to(device).contiguous() for x in xs)
+    """xs on the device, contiguous. A tensor already there is taken as
+    it is (the device compared as given: a torch.device with its index,
+    as Report passes, finds CUDA tensors there); anything else is moved,
+    numpy arrays taken as they are typed."""
+    for x in xs:
+        if not (isinstance(x, torch.Tensor) and x.device == device
+                and x.is_contiguous()):
+            return tuple(_moved(x, device) for x in xs)
+    return xs
+
+
+def _moved(x, device) -> torch.Tensor:
+    """x on the device, contiguous (a no-op for a tensor already so)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device).contiguous()
 
 
 def code(t: torch.Tensor) -> int:
     """The kernel's dtype code of t; raises for a type no probe takes."""
-    if t.dtype not in CODE:
+    c = CODE.get(t.dtype)
+    if c is None:
         raise ValueError(f"no probe kernel for dtype {t.dtype}")
-    return CODE[t.dtype]
+    return c
 
 
-def on_kernel(device) -> bool:
-    """True when a probe on `device` launches its kernel, False when it
-    runs its plain twin (the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
+def kernel_for(x: torch.Tensor) -> bool:
+    """True when a probe launches its kernel on x (a CUDA tensor), False
+    when it runs its plain twin (a CPU tensor); raises for any other
+    device."""
+    if x.is_cuda:
         return True
-    if dev.type == "cpu":
+    if x.is_cpu:
         return False
-    raise ValueError(f"no probe kernel for device {dev}")
+    raise ValueError(f"no probe kernel for device {x.device}")
 
 
-def launch(kernel: str, entry: str, *args) -> None:
-    """Call the C entry point `entry` on the current stream of the first
-    tensor among args (tensors go in by pointer), count one launch of
-    `kernel` and raise on a CUDA error."""
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = getattr(lib, entry)(
-            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args),
-            torch.cuda.current_stream(dev).cuda_stream)
+_ENTRIES: dict = {}   # C entry name -> ctypes function of the library
+
+
+def entry(name: str):
+    """The kernel library's C entry point `name` (the library built and
+    loaded at first use)."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = _ENTRIES[name] = getattr(_build.library(), name)
+    return fn
+
+
+def raw_stream(index: int) -> int:
+    """The handle of device `index`'s current CUDA stream, read as
+    PyTorch's own generated code reads it, without building a
+    torch.cuda.Stream."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(kernel: str, name: str, index: int, *args: int) -> None:
+    """Call the C entry `name` with args (integers; tensors go in as
+    their data_ptr()), the device index and that device's current
+    stream, count one launch of `kernel` and raise on a CUDA error. The
+    entry makes the device current for the launch only when it is not
+    (csrc/probe_common.cuh:DeviceGuard)."""
+    rc = entry(name)(*args, index, raw_stream(index))
     _build.count(kernel)
-    _build.check(lib, rc, f"{entry} ({kernel})")
+    if rc:
+        _build.check(_build.library(), rc, f"{name} ({kernel})")
 
 
 class Timed(NamedTuple):
@@ -208,7 +248,7 @@ def slope(run: Callable[[int], torch.Tensor], n: int, reps: int,
     """Time run(n) and run(2 n) as the JAX probes do: one warm-up run,
     then the fastest of `reps`; CUDA events on the card, the host clock
     on the CPU (a host time, not a device time)."""
-    cuda = on_kernel(device)
+    cuda = torch.device(device).type == "cuda"
     best = []
     out = None
     for steps in (n, 2 * n):
@@ -228,26 +268,58 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.double() - want.double()).abs().max())
 
 
+def show_ms(ms: float | None) -> str:
+    """A time for a report line; a device time not taken (on the CPU) is
+    "not measured", never a number."""
+    return "not measured" if ms is None else f"{ms:.5f} ms"
+
+
+class Times(NamedTuple):
+    """A compared case's times a call: the kernel's device time and its
+    host-inclusive time (the mean over a window of calls between CUDA
+    events: "a call, host"), the plain twin's one call, and the one
+    PyTorch call's device and host times where there is one."""
+    device_ms: float | None
+    host_ms: float
+    plain_ms: float
+    library_device_ms: float | None = None
+    library_host_ms: float | None = None
+
+    def line(self) -> str:
+        s = (f"kernel {show_ms(self.device_ms)} device, "
+             f"{self.host_ms:.5f} ms a call (host)")
+        if self.library_host_ms is not None:
+            s += (f"; one PyTorch call {show_ms(self.library_device_ms)} "
+                  f"device, {self.library_host_ms:.5f} ms a call (host)")
+        return s
+
+
 class Report:
     """Runs a probe's cases on one device and prints the JAX tools'
     lines: `OK   name` or `FAIL name: ...`, and the timing lines. On CUDA
     each case's kernel is held against its plain twin on the same
     tensors and must equal it exactly; a difference, or an exception in
     a case, is a failure and makes `status` 1. Per kernel it keeps the
-    largest difference and the summed kernel and plain times of the
-    compared runs (CUDA events). A case's `work` is (its input tensors,
-    operations per output element): its bound moves the inputs and the
-    output once and does the operations; its `library` is the one
-    PyTorch call, where there is one, that computes the same function on
-    the same inputs, timed beside it. Kernel and library times are means
-    a call over WINDOW warm calls, wrapper overhead included in both."""
+    largest difference and the summed times of the compared runs. A
+    case's `work` is (its input tensors, operations per output element):
+    its bound moves the inputs and the output once and does the
+    operations; its `library` is the one PyTorch call, where there is
+    one, that computes the same function on the same inputs, timed
+    beside it. Kernel and library are timed alike, each as device time
+    (device_ms) and as host-inclusive time a call (the mean over WINDOW
+    warm calls between CUDA events), wrapper overhead included in the
+    latter. The device is resolved once, with its index, so the probes'
+    wrappers find the report's tensors already in place."""
 
     CHECK_STEPS = (64, 2048)   # loops are compared at these step counts
     WINDOW = 20                # calls a timed window of a compared case
 
     def __init__(self, device="cuda", out=None):
-        self.device = resolve_device(device)
-        self.cuda = self.device.type == "cuda"
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        self.cuda = dev.type == "cuda"
         self.out = out if out is not None else sys.stdout
         self.failures: list[str] = []
         self.stats: dict[str, dict] = {}
@@ -266,22 +338,38 @@ class Report:
         self.say(f"  FAIL {name}: {type(err).__name__} {msg}")
         self.failures.append(name)
 
+    def _device_ms(self, run) -> float | None:
+        """Device ms a call of run() by kbench.device_ms (WINDOW calls
+        queued behind a spin on the device, so that the window holds the
+        kernels back to back, not the host's issue rate); None on the
+        CPU."""
+        if not self.cuda:
+            return None
+        from ..kbench import device_ms
+        return device_ms(torch, run, calls=self.WINDOW)
+
     def _compare(self, kernel: str, run, plain, work, library=None):
-        """(run()'s output, equal?, kernel ms, plain ms). The kernel's
-        run() and the library call are timed alike: one warm-up call,
-        then the mean a call over a window of WINDOW calls; the plain
-        twin once. CUDA events on the card, the host clock on the CPU."""
+        """(run()'s output, equal?, Times). The kernel's run() and the
+        library call are timed alike: one warm-up call, then the mean a
+        call over a window of WINDOW calls (CUDA events on the card, the
+        host clock on the CPU) and, on the card, the device time a call;
+        the plain twin once."""
         run()                                        # warm-up
         got, ms = _window_ms(run, self.cuda, self.WINDOW)
+        dms = self._device_ms(run)
         want, pms = _window_ms(plain, self.cuda)
+        dev0 = 0.0 if self.cuda else None
         st = self.stats.setdefault(kernel, dict(
-            max_abs_err=0.0, ms=0.0, plain_ms=0.0, compared=0,
-            bound_bytes_ms=0.0, bound_ops_ms=0.0, bound_ms=0.0,
-            library_ms=0.0, library_kernel_ms=0.0, library_cases=0))
+            max_abs_err=0.0, ms=0.0, device_ms=dev0, plain_ms=0.0,
+            compared=0, bound_bytes_ms=0.0, bound_ops_ms=0.0, bound_ms=0.0,
+            library_ms=0.0, library_device_ms=dev0, library_kernel_ms=0.0,
+            library_kernel_device_ms=dev0, library_cases=0))
         st["max_abs_err"] = max(st["max_abs_err"], max_abs_err(got, want))
         st["ms"] += ms
         st["plain_ms"] += pms
         st["compared"] += 1
+        if self.cuda:
+            st["device_ms"] += dms
         ins, ops_per = work
         tb, to = bound_ms(sum(x.numel() * x.element_size() for x in ins)
                           + got.numel() * got.element_size(),
@@ -289,15 +377,45 @@ class Report:
         st["bound_bytes_ms"] += tb
         st["bound_ops_ms"] += to
         st["bound_ms"] += max(tb, to)
+        times = Times(dms, ms, pms)
         if library is not None:
             library()                                # warm-up
-            st["library_ms"] += _window_ms(library, self.cuda,
-                                           self.WINDOW)[1]
+            lms = _window_ms(library, self.cuda, self.WINDOW)[1]
+            ldms = self._device_ms(library)
+            st["library_ms"] += lms
             st["library_kernel_ms"] += ms
             st["library_cases"] += 1
+            if self.cuda:
+                st["library_device_ms"] += ldms
+                st["library_kernel_device_ms"] += dms
+            times = times._replace(library_device_ms=ldms,
+                                   library_host_ms=lms)
         ok = got.shape == want.shape and got.dtype == want.dtype and \
             torch.equal(got, want)
-        return got, ok, ms, pms
+        return got, ok, times
+
+    def summary(self) -> None:
+        """A line per probe kernel: its compared runs and their summed
+        device and host ms a call, and, on the cases that have one, the
+        kernel against its one PyTorch call. On the CPU nothing was
+        compared or timed on a device."""
+        if not self.cuda:
+            self.say("device time: not measured (plain torch on the CPU)")
+            return
+        for k, st in self.stats.items():
+            line = (f"{k}: {st['compared']} runs; kernel "
+                    f"{show_ms(st['device_ms'])} device, {st['ms']:.5f} ms a "
+                    f"call (host), summed")
+            n = st["library_cases"]
+            if n:
+                kd, ld = st["library_kernel_device_ms"], \
+                    st["library_device_ms"]
+                kh, lh = st["library_kernel_ms"], st["library_ms"]
+                line += (f"; on its {n} one-call cases kernel "
+                         f"{show_ms(kd)} against {show_ms(ld)} device "
+                         f"({kd / ld:.2f}x), {kh:.5f} against {lh:.5f} ms a "
+                         f"call host ({kh / lh:.2f}x)")
+            self.say(line)
 
     def case(self, name: str, kernel: str, run: Callable[[], torch.Tensor],
              plain: Callable[[], torch.Tensor], work, library=None,
@@ -308,8 +426,8 @@ class Report:
             if not self.cuda:
                 got, ok = run(), True
             else:
-                got, ok, _, _ = self._compare(kernel, run, plain, work,
-                                              library)
+                got, ok, times = self._compare(kernel, run, plain, work,
+                                               library)
         except Exception as e:  # the tools report per case, then go on
             self.fail(name, e)
             return None
@@ -319,7 +437,8 @@ class Report:
         tail = f"  (sample {got.flatten()[:4].cpu().numpy()})" if sample \
             else ""
         self.say(f"  OK   {name}{tail}" +
-                 ("  [kernel == plain]" if self.cuda else ""))
+                 (f"  [kernel == plain; {times.line()}]" if self.cuda
+                  else ""))
         return got
 
     def loop(self, name: str, kernel: str, run: Callable[[int], torch.Tensor],
@@ -334,15 +453,15 @@ class Report:
         try:
             if self.cuda:
                 for k in self.CHECK_STEPS:
-                    _, ok, ms, pms = self._compare(kernel, lambda: run(k),
-                                                   lambda: plain(k), work(k))
+                    _, ok, times = self._compare(kernel, lambda: run(k),
+                                                 lambda: plain(k), work(k))
                     if not ok:
                         raise AssertionError(
                             f"kernel != plain twin at {k} steps")
                 self.say(f"  OK   {name}  [kernel == plain at "
                          f"{', '.join(map(str, self.CHECK_STEPS))} steps; "
-                         f"at {k} steps kernel {ms:.3f} ms, plain "
-                         f"{pms:.1f} ms]")
+                         f"at {k} steps {times.line()}, plain "
+                         f"{times.plain_ms:.1f} ms]")
             return [(n, timer(n))
                     for n in (counts if self.cuda else (CPU_STEPS,))]
         except Exception as e:

@@ -14,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._common import (W, Report, Timed, code, columns, inputs, launch, on,
-                      on_kernel, roll_up, slope, tensor)
+from ._common import (W, Report, Timed, code, columns, inputs, kernel_for,
+                      launch, on, roll_up, slope, tensor)
 
 N_ARR = 6              # the tool's main: timing(dt, 6, steps)
 STEPS = 200_000        # the tool's main: timing at 2e5 and 4e5 steps
@@ -82,15 +82,16 @@ def run2(op: str, x, y, device="cuda") -> torch.Tensor:
     """probe_bf16ops.run2 with the tool's lambda `op` on (x, y), as
     float32."""
     x, y = on(device, x, y)
-    if not on_kernel(device):
+    if not kernel_for(x):
         return run2_plain(op, x, y)
     if op not in OP_NAMES:
         raise ValueError(f"unknown op {op!r}; one of {OP_NAMES}")
     if x.dim() != 2 or x.shape != y.shape or x.dtype != y.dtype:
         raise ValueError("run2: x and y must be 2-D of one shape and dtype")
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    launch("p3", "p3_run2_launch", x, y, x.shape[0], x.shape[1], code(x),
-           OP_NAMES.index(op), out)
+    out = torch.empty_like(x, dtype=torch.float32)
+    launch("p3", "p3_run2_launch", x.get_device(), x.data_ptr(),
+           y.data_ptr(), x.shape[0], x.shape[1], code(x), OP_NAMES.index(op),
+           out.data_ptr())
     return out
 
 
@@ -113,11 +114,12 @@ def timing_loop(x, steps: int, device="cuda") -> torch.Tensor:
     a <- max(max(a + 1, arrs[-1]) - 1, arrs[0] - 1) on the 6 arrays
     x + k % 3, then their max, as float32."""
     (x,) = on(device, x)
-    if not on_kernel(device):
+    if not kernel_for(x):
         return timing_plain(x, steps)
     B = columns(x, "timing")
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    launch("p3", "p3_timing_launch", x, B, code(x), steps, out)
+    out = torch.empty_like(x, dtype=torch.float32)
+    launch("p3", "p3_timing_launch", x.get_device(), x.data_ptr(), B,
+           code(x), steps, out.data_ptr())
     return out
 
 

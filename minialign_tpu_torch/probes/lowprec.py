@@ -8,7 +8,10 @@ isolation: per step, each of 4 (W, B) arrays takes a row roll under the
 column's direction, an add and a max, all in the loop carry. Its kernel
 keeps the fill's layout (one warp per column, W = 64), so its ns/step on
 the card says what the step mix costs per dtype and how it moves with
-the number of columns.
+the number of columns. int32 and float32 keep a value a register; int16
+and bf16 pack rows t and t + 32 into one 32-bit word, two lanes, as the
+TPU packs a 16-bit array two rows to a sublane word
+(tests/test_torch_probe_pack.py models the layout).
 
 At the tool's 2048 steps one run takes ~0.3 ms on the card, where
 launch gaps and the clock's ramp weigh on the slope; on the card the
@@ -22,7 +25,7 @@ import torch
 
 from ._common import (BINOPS, LIBRARY_BINOP, W, Report, Timed, binop,
                       binop_plain, carry_plain, code, columns, inputs,
-                      launch, on, on_kernel, roll_up, slope, tensor)
+                      kernel_for, launch, on, roll_up, slope, tensor)
 
 DTYPES = ("int16", "int8", "bfloat16", "float32", "int32")
 STEP_DTYPES = ("int32", "float32", "bfloat16", "int16")
@@ -89,13 +92,14 @@ def roll_concat(x, y, device="cuda", rounds: int = ROUNDS) -> torch.Tensor:
     """c <- where(y[0] > y[1], concat(c[1:], 0), c) + 1, `rounds` times
     from c = x, as float32 (probe_lowprec.roll_concat)."""
     x, y = on(device, x, y)
-    if not on_kernel(device):
+    if not kernel_for(x):
         return roll_concat_plain(x, y, rounds)
     B = columns(x, "roll_concat")
     if y.shape != x.shape or y.dtype != x.dtype:
         raise ValueError("roll_concat: x and y differ in shape or dtype")
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    launch("p2", "p2_roll_concat_launch", x, y, B, code(x), rounds, out)
+    out = torch.empty_like(x, dtype=torch.float32)
+    launch("p2", "p2_roll_concat_launch", x.get_device(), x.data_ptr(),
+           y.data_ptr(), B, code(x), rounds, out.data_ptr())
     return out
 
 
@@ -103,14 +107,15 @@ def step_loop(x, dd, n_steps: int, device="cuda") -> torch.Tensor:
     """One run of the step-timer loop: n_steps steps on N_ARR arrays
     x + k, then their max, as float32."""
     x, dd = on(device, x, dd)
-    if not on_kernel(device):
+    if not kernel_for(x):
         return step_timer_plain(x, dd, n_steps)
     B = columns(x, "step_timer")
     dd = dd.to(torch.int32).reshape(-1).contiguous()
     if dd.numel() != B:
         raise ValueError("step_timer: dd needs one direction per column")
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    launch("p2", "p2_step_timer_launch", x, dd, B, code(x), n_steps, out)
+    out = torch.empty_like(x, dtype=torch.float32)
+    launch("p2", "p2_step_timer_launch", x.get_device(), x.data_ptr(),
+           dd.data_ptr(), B, code(x), n_steps, out.data_ptr())
     return out
 
 
@@ -123,10 +128,16 @@ def step_timer(x, dd, n_steps: int = STEPS, device="cuda",
                  device)
 
 
-def step_inputs(rng: np.random.Generator, dtype: str, device, B: int = 128):
-    """step_timer: x (W, B) from [0, 4), dd (1, B) int32 from [0, 7)."""
-    return (tensor(rng.integers(0, 4, (W, B)), dtype, device),
+def step_inputs(rng: np.random.Generator, dtype: str, device, B: int = 128,
+                lo: int = 0, hi: int = 4):
+    """step_timer: x (W, B) from [lo, hi) (the tool's [0, 4) by default),
+    dd (1, B) int32 from [0, 7)."""
+    return (tensor(rng.integers(lo, hi, (W, B)), dtype, device),
             tensor(rng.integers(0, 7, (1, B)), "int32", device))
+
+
+# step_inputs' bounds for the int16 case that wraps within 64 steps
+WRAP_RANGE = (32750, 32767)
 
 
 def main(rep: Report, rng: np.random.Generator) -> None:

@@ -18,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._common import Report, Timed, launch, on, on_kernel, slope, tensor
+from ._common import (Report, Timed, kernel_for, launch, on, slope,
+                      tensor)
 
 SHAPE = (8, 128)
 ROWS = 8
@@ -99,13 +100,14 @@ def _slab(w: torch.Tensor, what: str) -> int:
 def var_shift(w, s, device="cuda") -> torch.Tensor:
     """(w >> 3 s) & 7 (probe_wordstream.var_shift)."""
     w, s = on(device, w, s)
-    if not on_kernel(device):
+    if not kernel_for(w):
         return var_shift_plain(w, s)
     _i32(w, s)
     if w.shape != s.shape:
         raise ValueError("var_shift: w and s differ in shape")
     out = torch.empty_like(w)
-    launch("p4", "p4_var_shift_launch", w, s, w.numel(), out)
+    launch("p4", "p4_var_shift_launch", w.get_device(), w.data_ptr(),
+           s.data_ptr(), w.numel(), out.data_ptr())
     return out
 
 
@@ -114,12 +116,13 @@ def roll_in_carry(w, device="cuda", rounds: int = ROLL_ROUNDS) -> torch.Tensor:
     slab <- where(sh >= 30, roll(slab), slab), sh <- 0 there, else
     sh + 3, from sh = 0; returns slab + sh."""
     (w,) = on(device, w)
-    if not on_kernel(device):
+    if not kernel_for(w):
         return roll_in_carry_plain(w, rounds)
     _i32(w)
     C = _slab(w, "roll_in_carry")
     out = torch.empty_like(w)
-    launch("p4", "p4_roll_in_carry_launch", w, C, rounds, out)
+    launch("p4", "p4_roll_in_carry_launch", w.get_device(), w.data_ptr(), C,
+           rounds, out.data_ptr())
     return out
 
 
@@ -127,26 +130,28 @@ def div10_magic(x, device="cuda") -> torch.Tensor:
     """((x >> 1) * 52429) >> 18 in int32, the product wrapping
     (probe_wordstream.div10_magic without its check)."""
     (x,) = on(device, x)
-    if not on_kernel(device):
+    if not kernel_for(x):
         return div10_magic_plain(x)
     _i32(x)
     out = torch.empty_like(x)
-    launch("p4", "p4_div10_launch", x, x.numel(), out)
+    launch("p4", "p4_div10_launch", x.get_device(), x.data_ptr(), x.numel(),
+           out.data_ptr())
     return out
 
 
 def stream_loop(wa, wb, d, steps: int, device="cuda") -> torch.Tensor:
     """One run of the two-sided stream update, (1, C) int32."""
     wa, wb, d = on(device, wa, wb, d)
-    if not on_kernel(device):
+    if not kernel_for(wa):
         return stream_timing_plain(wa, wb, d, steps)
     _i32(wa, wb, d)
     C = _slab(wa, "stream_timing")
     if wb.shape != wa.shape or d.numel() != C:
         raise ValueError("stream_timing: need wa, wb (8, C) and d (1, C)")
     out = torch.empty((1, C), dtype=torch.int32, device=wa.device)
-    launch("p4", "p4_stream_launch", wa, wb, d.reshape(-1).contiguous(), C,
-           steps, out)
+    d = d.reshape(-1).contiguous()
+    launch("p4", "p4_stream_launch", wa.get_device(), wa.data_ptr(),
+           wb.data_ptr(), d.data_ptr(), C, steps, out.data_ptr())
     return out
 
 

@@ -284,3 +284,69 @@ def test_p4_kernels_match_plain(dev):
     for n in (1, 64, 300):
         _same(wordstream.stream_loop(w, wb, d, n, dev),
               wordstream.stream_timing_plain(w, wb, d, n))
+
+
+# ---- P1 and P2 redesigned: packed lanes, edge inputs, the thin launch
+
+
+@pytest.mark.parametrize("kind", kbench.PROBE_EDGE_KINDS)
+@pytest.mark.parametrize("dtype", ["int8", "uint8", "int16"])
+def test_p1_kernel_on_edge_inputs(dtype, kind, dev):
+    """Every op and carry of P1 at the type's edges, at an odd size, and
+    on views one value past an aligned start (the scalar path)."""
+    rng = np.random.default_rng(21)
+    for op in subint32.BINOPS:
+        x, y = kbench.probe_edge_pair(rng, dtype, kind, dev)
+        _build.reset_counts()
+        _same(subint32.probe(op, x, y, dev), subint32.probe_plain(op, x, y))
+        assert _build.LAUNCHES["p1"] == 1
+    for op in subint32.CARRY_OPS:
+        x, y = kbench.probe_edge_pair(rng, dtype, kind, dev)
+        _same(subint32.probe_carry(op, x, y, dev),
+              subint32.probe_carry_plain(op, x, y))
+
+
+@pytest.mark.parametrize("kind", kbench.PROBE_EDGE_KINDS)
+@pytest.mark.parametrize("dtype", lowprec.DTYPES)
+def test_p2_kernel_on_edge_inputs(dtype, kind, dev):
+    rng = np.random.default_rng(22)
+    for op in lowprec.BINOPS:
+        x, y = kbench.probe_edge_pair(rng, dtype, kind, dev)
+        _same(lowprec.elementwise(op, x, y, dev),
+              lowprec.elementwise_plain(op, x, y))
+    x, y = kbench.probe_edge_pair(rng, dtype, kind, dev)
+    _same(lowprec.in_carry("maximum", x, y, dev),
+          lowprec.in_carry_plain("maximum", x, y))
+    _same(lowprec.in_carry("select", x, y, dev),
+          lowprec.in_carry_plain("select", x, y))
+    if kind != "odd":          # roll_concat takes (64, B)
+        _same(lowprec.roll_concat(x, y, dev), lowprec.roll_concat_plain(x, y))
+
+
+@pytest.mark.parametrize("B", [128, 1024])
+@pytest.mark.parametrize("dtype", ["int16", "bfloat16"])
+def test_p2_packed_step_timer_matches_plain(dtype, B, dev):
+    """The packed step timer at the checked step counts, and for int16
+    from inputs near 32,767, where its adds wrap within 64 steps."""
+    rng = np.random.default_rng(23)
+    cases = [lowprec.step_inputs(rng, dtype, dev, B)]
+    if dtype == "int16":
+        cases.append(lowprec.step_inputs(rng, dtype, dev, B,
+                                         *lowprec.WRAP_RANGE))
+    for x, dd in cases:
+        for n in (1, 64, 2048):
+            _same(lowprec.step_loop(x, dd, n, dev),
+                  lowprec.step_timer_plain(x, dd, n))
+
+
+def test_probe_wrapper_takes_string_device_and_other_inputs(dev):
+    """The thin path's slow side: a device named by string, numpy inputs
+    and a non-contiguous tensor are moved, then launched."""
+    rng = np.random.default_rng(24)
+    x = rng.integers(-100, 100, (64, 128)).astype(np.int16)
+    y = tensor(rng.integers(-100, 100, (128, 64)), "int16", dev).t()
+    want = subint32.probe_plain("add", torch.from_numpy(x).to(dev),
+                                y.contiguous())
+    _build.reset_counts()
+    _same(subint32.probe("add", x, y, "cuda"), want)
+    assert _build.LAUNCHES["p1"] == 1

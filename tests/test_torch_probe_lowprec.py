@@ -2,13 +2,31 @@
 tests/tools/probe_lowprec.py run in Pallas interpret mode: the 5 dtypes
 x 6 cases of the tool's main and its step timer in 4 dtypes at 8 and 16
 steps; the port's plain twin and its CPU dispatch on the recorded
-inputs, exactly. Every value stays at or under 256, so bf16 is exact
-either way and no case needs JAX without excess precision."""
+inputs, exactly. Every value of the tool's own inputs stays at or under
+256, so bf16 is exact either way.
+
+Then the same 6 cases on edge inputs (kbench.probe_edge_values, handed
+to the tool through np.random.randint), at (64, 128) and at an odd size:
+int8 and int16 at both ends, int32 at both ends, bf16 and float32 sums
+that round. The bf16 cases that round (add, and the +1 of the roll
+carry) take their JAX side from a subprocess without excess precision
+(test_torch_probes.record_in_subprocess):
+
+    python tests/test_torch_probe_lowprec.py OUT CASE...
+
+records CASEs ("KIND DTYPE CASE", e.g. "odd bfloat16 add") into OUT."""
+
+import sys
+import zlib
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
-from test_torch_probes import assert_same, record, tool
+import torch
+from test_torch_probes import (assert_same, record, record_in_subprocess,
+                               save_calls, tool)
 
+from minialign_tpu_torch import kbench
 from minialign_tpu_torch.probes import lowprec
 
 JNP = {"int16": jnp.int16, "int8": jnp.int8, "bfloat16": jnp.bfloat16,
@@ -63,3 +81,88 @@ def test_step_timer_matches_jax(dtype, monkeypatch):
         assert_same(lowprec.step_loop(x, dd, n, "cpu"), call.out)
     timed = lowprec.step_timer(*calls[0].ins, STEPS, "cpu", reps=1)
     assert_same(timed.out, calls[0].out)
+
+
+EDGE_KINDS = ("extreme", "odd")
+ROUNDING = ("add", "roll-sel-in-carry")    # bf16 cases whose sums round
+
+
+def run_edge_case(case: str) -> None:
+    """The tool's case "KIND DTYPE CASE" on kbench.probe_edge_values at
+    (64, 128) ("extreme") or kbench.PROBE_ODD_SHAPE ("odd"), drawn from a
+    seed of the case's name."""
+    kind, dtype, name = case.split(" ", 2)
+    shape = kbench.PROBE_ODD_SHAPE if kind == "odd" else (64, 128)
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    arrays = iter([kbench.probe_edge_values(rng, dtype, shape)
+                   for _ in range(2)])
+    t = tool("probe_lowprec")
+    dt = JNP[dtype]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(np.random, "randint", lambda lo, hi, size: next(arrays))
+        if name == "max-in-carry":
+            t.in_carry(dt, jnp.maximum, shape)
+        elif name == "roll-sel-in-carry":
+            t.roll_concat(dt, shape)
+        else:
+            t.elementwise(dt, FNS[name], shape)
+
+
+def port_case(name: str, x, y):
+    if name == "max-in-carry":
+        return lowprec.in_carry("maximum", x, y, "cpu")
+    if name == "roll-sel-in-carry":
+        return lowprec.roll_concat(x, y, "cpu")
+    return lowprec.elementwise(name, x, y, "cpu")
+
+
+@pytest.fixture(scope="module")
+def exact_bf16_edges(tmp_path_factory):
+    return record_in_subprocess(
+        __file__, [f"{k} bfloat16 {c}" for k in EDGE_KINDS for c in ROUNDING],
+        tmp_path_factory.mktemp("edges"))
+
+
+def edge_call(kind, dtype, name, monkeypatch, request):
+    case = f"{kind} {dtype} {name}"
+    if dtype == "bfloat16" and name in ROUNDING:
+        (call,) = request.getfixturevalue("exact_bf16_edges")[case]
+        return call
+    calls = record(monkeypatch)
+    run_edge_case(case)
+    (call,) = calls
+    return call
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", lowprec.DTYPES)
+def test_case_on_edge_inputs_matches_jax(dtype, case, monkeypatch, request):
+    call = edge_call("extreme", dtype, case, monkeypatch, request)
+    x, y = call.ins
+    lo, hi = kbench.PROBE_EDGE_RANGES[dtype][1]
+    assert bool((x.double() >= lo - 1).any())        # the edge values
+    assert_same(port_case(case, x, y), call.out)
+
+
+@pytest.mark.parametrize("dtype", lowprec.DTYPES)
+def test_cases_at_an_odd_size_match_jax(dtype, monkeypatch, request):
+    for case in CASES:
+        call = edge_call("odd", dtype, case, monkeypatch, request)
+        x, y = call.ins
+        assert x.shape == kbench.PROBE_ODD_SHAPE
+        assert_same(port_case(case, x, y), call.out)
+
+
+def test_bf16_edge_sums_round_in_both():
+    """Why the rounding bf16 cases go to the subprocess: their sums are
+    not bf16 values, so the port's per-op rounding shows."""
+    rng = np.random.default_rng(0)
+    x, y = (torch.from_numpy(kbench.probe_edge_values(
+        rng, "bfloat16", (64, 128)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(2))
+    exact = x.float() + y.float()
+    assert bool((lowprec.elementwise("add", x, y, "cpu") != exact).any())
+
+
+if __name__ == "__main__":
+    save_calls(sys.argv[1], run_edge_case, sys.argv[2:])

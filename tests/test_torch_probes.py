@@ -166,6 +166,7 @@ def test_probes_cli_on_cpu_never_imports_jax():
     assert len(oks) == 18 + 30 + 10 + 3, len(oks)   # P1, P2, P3, P4
     assert sum("FAIL div-by-10 magic == x // 10" in x for x in lines) == 1
     assert sum("ns/step" in x for x in lines) == 4 + 3 + 1
+    assert lines[-1] == "device time: not measured (plain torch on the CPU)"
     pkg = os.path.join(ROOT, "minialign_tpu_torch", "probes")
     for f in os.listdir(pkg):
         if f.endswith(".py"):
@@ -177,7 +178,8 @@ def test_probes_cli_on_cpu_never_imports_jax():
 def test_report_times_run_and_library_alike():
     """A Report's comparison calls the kernel's run() exactly as often as
     the one PyTorch call: one warm-up, then a window of WINDOW calls
-    each (here on the CPU, on the host clock)."""
+    each (here on the CPU, on the host clock, and no device time: it is
+    "not measured", never a number)."""
     from minialign_tpu_torch.probes._common import Report
     rep = Report(device="cpu", out=io.StringIO())
     n = {"run": 0, "library": 0}
@@ -191,9 +193,15 @@ def test_report_times_run_and_library_alike():
         n["library"] += 1
         return torch.add(x, x)
 
-    got, ok, ms, _ = rep._compare("p1", run, lambda: x + x, ((x, x), 1),
+    got, ok, times = rep._compare("p1", run, lambda: x + x, ((x, x), 1),
                                   library)
     assert ok and torch.equal(got, x + x)
     assert n["run"] == n["library"] == Report.WINDOW + 1
     st = rep.stats["p1"]
-    assert st["library_cases"] == 1 and st["library_kernel_ms"] == ms
+    assert st["library_cases"] == 1
+    assert st["library_kernel_ms"] == times.host_ms
+    assert times.device_ms is None and times.library_device_ms is None
+    assert st["device_ms"] is None and st["library_device_ms"] is None
+    assert "kernel not measured device" in times.line()
+    rep.summary()
+    assert "not measured" in rep.out.getvalue()
