@@ -17,17 +17,23 @@ Phases, in order; any failure exits non-zero before the result line:
      B=128 x 20 kb), with times, ns/step and the bound
   4  K3 traceback kernel == dtrace_plain on phase 3's trace buffers,
      with ns/move at 20 kb
-  5  the goldens through the port's CLI on CUDA (ref_out, ref_pacbio,
-     ref_tags), every kernel launched
+  4b D1 duo window kernel == duo_window_plain, word for word, on
+     kbench.duo_geometry's edge cases at B 1/48/512, the geometry read
+     from behind a down descriptor block as the engine uploads it
+  5  every golden of tests/data through the port's CLI on CUDA with the
+     duo on (GOLDENS, compared as tests/test_golden_sam.py compares
+     them): fill, gather and walk launched, the duo on a linear reference
   6  real size: bench_e2e.make_workload's 5 Mb genome and 100 x 20 kb
-     reads mapped with -t1 -xpacbio; the SAM (without @PG) must hash to
-     the JAX package's digest below; the port's host library loaded; the
-     problems of each traced fill launch. Then phases 3-4 again at the
-     median of those launch sizes (20 kb): the kernels timed, their
-     results held to phase 3's plain ones for the same problems. The
-     gather launches once a fill launch; a profiled rerun counts the
-     host-to-device copies (pageable and pinned); phase 2's timing again
-     at the run's median gather launch
+     reads mapped with -t1 -xpacbio, with MINIALIGN_DUO=1 (the default)
+     and then 0 (the two-step path); each SAM (without @PG) must hash to
+     the JAX package's digest below; the duo launched in the first run
+     and not in the second; the port's host library loaded; the problems
+     of each traced fill launch. Then phases 3-4 again at the median of
+     those launch sizes (20 kb): the kernels timed, their results held
+     to phase 3's plain ones for the same problems. The gather launches
+     once a fill launch; a profiled rerun counts the host-to-device
+     copies (pageable and pinned); phase 2's timing again at the run's
+     median gather launch, phase 4b's at its median duo launch
   7  the step-mix probes P1-P4 through their entry point
      (minialign_tpu_torch.probes.run, i.e. python -m
      minialign_tpu_torch.probes): every case of the four JAX tools, each
@@ -50,6 +56,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -65,19 +72,85 @@ DATA = os.path.join(ROOT, "tests", "data")
 E2E_READS = 100
 E2E_SHA256 = ("ac52c9b48c971877583630a173e387fc"
               "189fb403037d3baf904dcfbdfb91832a")
-# The JAX package's own output (SAM without @PG) for the goldens' inputs.
-# ref_out.sam and ref_pacbio.sam equal the reference binary's goldens;
-# for -T...,MD the reference binary's MD differs on reverse-strand
-# records (PARITY.md item 1), so that case is held to the JAX output,
-# and to the golden apart from that field.
+# Every golden of tests/data through the port's CLI, as
+# tests/test_golden_sam.py runs and compares them: (name, arguments, golden
+# file, comparison, SHA-256 of the JAX package's own output without @PG or
+# None, arguments of a run that must come first or None). "{d}" stands
+# for tests/data and "{t}" for a scratch directory. Comparisons: "exact"
+# (the whole text), "pg" (lines other than @PG), "md" (and without MD
+# fields), "md_rev" (without the MD field of reverse-strand records, where
+# the reference binary's MD is wrong, PARITY.md item 1). The three JAX
+# digests were taken with the JAX package on a CPU.
 GOLDENS = (
-    (["-t1"], "ref_out.sam",
-     "8e3128188f38530feac41f4f692962be4a3c4a857d436ec023b8621b9ffcc56a"),
-    (["-t1", "-xpacbio"], "ref_pacbio.sam",
-     "dfea3e049504c9c36b69dff10e189b8a9d4864666b43028839504c3044fcd80c"),
-    (["-t1", "-TAS,NM,MD,XS,NH,IH"], "ref_tags.sam",
-     "ca8ef1579be1513f83b3c0696b704309d3513be8c2f340ecca97bbbc2b3d2b84"),
+    ("out", ["-t1", "{d}/tref.fa", "{d}/treads.fq"], "ref_out.sam", "pg",
+     "8e3128188f38530feac41f4f692962be4a3c4a857d436ec023b8621b9ffcc56a",
+     None),
+    ("t4", ["-t4", "{d}/tref.fa", "{d}/treads.fq"], "ref_out.sam", "pg",
+     None, None),
+    ("pacbio", ["-t1", "-xpacbio", "{d}/tref.fa", "{d}/treads.fq"],
+     "ref_pacbio.sam", "pg",
+     "dfea3e049504c9c36b69dff10e189b8a9d4864666b43028839504c3044fcd80c",
+     None),
+    ("tags", ["-t1", "-TAS,NM,MD,XS,NH,IH", "{d}/tref.fa", "{d}/treads.fq"],
+     "ref_tags.sam", "md_rev",
+     "ca8ef1579be1513f83b3c0696b704309d3513be8c2f340ecca97bbbc2b3d2b84",
+     None),
+    ("qual", ["-t1", "-Q", "{d}/tref.fa", "{d}/treads.fq"], "ref_qual.sam",
+     "pg", None, None),
+    ("paf", ["-t1", "-Opaf", "{d}/tref.fa", "{d}/treads.fq"], "ref_out.paf",
+     "exact", None, None),
+    ("maf", ["-t1", "-Omaf", "{d}/tref.fa", "{d}/treads.fq"], "ref_out.maf",
+     "exact", None, None),
+    ("blast6", ["-t1", "-Oblast6", "{d}/tref.fa", "{d}/treads.fq"],
+     "ref_out.b6", "exact", None, None),
+    ("ava_paf", ["-t1", "-X", "-xava", "-Opaf", "{d}/treads.fa",
+                 "{d}/treads2.fq"], "ref_ava.paf", "exact", None, None),
+    ("ava_sam", ["-t1", "-X", "-xava", "-R", "@RG\\tID:ava",
+                 "{d}/treads.fa", "{d}/treads2.fq"], "ref_ava_rg.sam", "pg",
+     None, None),
+    ("twoblock", ["-t1", "{t}/two.mai", "{d}/treads.fq"], "ref_twoblock.sam",
+     "pg", None, ["-t1", "-d", "{t}/two.mai", "{d}/tref.fa", "{d}/tref.fa"]),
+    ("circ", ["-t1", "-cplasmid", "{d}/cplas.fa", "{d}/creads.fq"],
+     "ref_circ.sam", "pg", None, None),
+    ("circ_paf", ["-t1", "-Opaf", "-cplasmid", "{d}/cplas.fa",
+                  "{d}/creads.fq"], "ref_circ.paf", "exact", None, None),
+    ("circ_tags", ["-t1", "-cplasmid", "-TAS,NM,MD,SA,XS,NH,IH",
+                   "{d}/cplas.fa", "{d}/creads.fq"], "ref_circ_tags.sam",
+     "md_rev", None, None),
+    ("bam", ["-t1", "{d}/tref.fa", "{d}/treads.bam"], "ref_bam.sam", "pg",
+     None, None),
+    ("bam_q", ["-t1", "-Q", "{d}/tref.fa", "{d}/treads.bam"],
+     "ref_bam_q.sam", "pg", None, None),
+    ("ont", ["-t1", "-xont.r9.4.1d", "{d}/tref.fa", "{d}/treads.fq"],
+     "ref_ont.sam", "pg", None, None),
+    ("emod", ["-t1", "-a2", "-b5", "-p5", "-q1", "-r3,3", "-eGA+3",
+              "{d}/tref.fa", "{d}/treads.fq"], "ref_emod.sam", "pg", None,
+     None),
+    ("ont1dsq_circ", ["-t1", "-xont.1dsq", "-cplasmid", "-TSA,MD",
+                      "{d}/cplas.fa", "{d}/creads.fq"],
+     "ref_ont1dsq_circ.sam", "md", None, None),
+    ("multi", ["-t1", "{d}/mref.fa", "{d}/mreads.fq"], "ref_multi.sam", "pg",
+     None, None),
+    ("rep", ["-t1", "-xpacbio", "{d}/repref.fa", "{d}/repreads.fq"],
+     "ref_rep.sam", "pg", None, None),
+    ("tie", ["-t1", "-xpacbio.ccs", "{d}/tieref.fa", "{d}/tiereads.fq"],
+     "ref_tie.sam", "pg", None, None),
+    ("xdrop", ["-t1", "-a2", "-b1", "-p4", "-q2", "-TAS,NM,XS,NH",
+               "{d}/xdref.fa", "{d}/xdreads.fq"], "ref_xdrop.sam", "md",
+     None, None),
+    ("circmaf", ["-t1", "-a3", "-b4", "-p0", "-q2", "-m0.5", "-cc0", "-Omaf",
+                 "{d}/cmref.fa", "{d}/cmreads.fq"], "ref_circmaf.maf",
+     "exact", None, None),
+    ("circsplit", ["-t1", "-a3", "-b4", "-p0", "-q2", "-m0.5", "-cc0",
+                   "{d}/cmref.fa", "{d}/cmreads.fq"], "ref_circsplit.sam",
+     "pg", None, None),
+    ("ksort", ["-t1", "-a3", "-b2", "-p5", "-q2", "-r3,3", "-s59", "-m0.2",
+               "-k10", "-w3", "{d}/ksref.fa", "{d}/ksreads.fq"],
+     "ref_ksort.sam", "md", None, None),
 )
+# the goldens too slow for the plain CPU path (tests/test_torch_golden_*.py
+# leave them to the card)
+CARD_GOLDENS = ("ava_paf", "ava_sam", "twoblock", "rep", "xdrop", "ksort")
 KERNELS = {
     "fill": ("minialign_tpu_torch/csrc/fill.cu",
              "minialign_tpu/dp/pallas_fill.py:663"),
@@ -85,6 +158,8 @@ KERNELS = {
                "minialign_tpu/dp/pallas_gather.py:83"),
     "dtrace": ("minialign_tpu_torch/csrc/dtrace.cu",
                "minialign_tpu/dp/dtrace.py:66"),
+    "duo": ("minialign_tpu_torch/csrc/duo.cu",
+            "minialign_tpu/extend.py:675"),
     "p1": ("minialign_tpu_torch/csrc/probe_subint32.cu",
            "tests/tools/probe_subint32.py:15"),
     "p2": ("minialign_tpu_torch/csrc/probe_lowprec.cu",
@@ -94,7 +169,7 @@ KERNELS = {
     "p4": ("minialign_tpu_torch/csrc/probe_wordstream.cu",
            "tests/tools/probe_wordstream.py:26"),
 }
-MAPPER = ("fill", "gather", "dtrace")        # the CLI's kernels
+MAPPER = ("fill", "gather", "dtrace", "duo")  # the CLI's kernels
 PROBES = ("p1", "p2", "p3", "p4")            # the probes' kernels
 
 
@@ -173,13 +248,31 @@ def sam_digest(text):
     return hashlib.sha256(body.encode()).hexdigest(), body
 
 
-def drop_reverse_md(text):
-    """SAM text without the MD field of reverse-strand records, where
-    the reference binary's MD is wrong (PARITY.md item 1)."""
+# bytes the duo window moves a problem: the down score, i and j and the
+# geometry (two int64, four int32) read, the up descriptor's two rows
+# (seven words each) and the down rows written
+DUO_BYTES = 12 + 32 + 56 + 12
+DUO_OPS = 20
+
+
+def golden_args(args, data, tmp):
+    """A GOLDENS entry's arguments with "{d}" and "{t}" filled in."""
+    return [a.replace("{d}", data).replace("{t}", tmp) for a in args]
+
+
+def golden_view(text, mode):
+    """What a GOLDENS comparison holds of a CLI output or a golden: the
+    whole text, or its lines without @PG, and without the MD fields that
+    `mode` drops."""
+    if mode == "exact":
+        return text
     out = []
     for line in text.splitlines():
+        if line.startswith("@PG"):
+            continue
         f = line.split("\t")
-        if not line.startswith("@") and int(f[1]) & 0x10:
+        if mode == "md" or (mode == "md_rev" and not line.startswith("@")
+                            and int(f[1]) & 0x10):
             f = [x for x in f if not x.startswith("MD:Z:")]
         out.append("\t".join(f))
     return out
@@ -209,7 +302,8 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     from minialign_tpu_torch import cli, kbench, native
-    from minialign_tpu_torch.dp import band, cuda_fill, cuda_gather, dtrace
+    from minialign_tpu_torch.dp import (band, cuda_fill, cuda_gather, dtrace,
+                                        duo)
     from minialign_tpu_torch.params import MapParams, ScoreParams
     timed = kbench.timed
     dev = torch.device("cuda")
@@ -377,23 +471,33 @@ def main():
 
     p = pr["combined"]
     args20 = pairs(7, 128, 20000)
-    got, _, ms, pms = check_fill(p, 64, False, args20, reps=3)
-    cells = int(got.n_steps.sum()) * 64
-    mx = int(got.n_steps.max())
-    say(f"[3] fill W=64 -xpacbio scores B=128 L=20kb trace=False: equal; "
-        f"kernel {ms:.2f} ms ({cells / ms / 1e6:.1f} GCUPS, "
-        f"{ms * 1e6 / mx:.1f} ns/step over {mx} steps), plain {pms:.1f} ms; "
-        f"{show(fill_bound(got, args20[1], args20[3], 64, False))} on {card}")
-    got, want20, ms, pms = check_fill(p, 64, True, args20, reps=3)
+    got, want20, tms, pms = check_fill(p, 64, True, args20, reps=3)
+    # the untraced kernel against the traced plain fill's results (the
+    # same FillResult: tracing changes none of it)
+    nb20 = band.max_blocks_for(args20[1].cpu().numpy(),
+                               args20[3].cpu().numpy())
+    fill_u = lambda: cuda_fill.fill_cuda(p, 64, nb20, False, *args20)  # noqa
+    fill_u()                                             # warm-up
+    got_u, ms = timed(torch, fill_u, 3, kbench.CALLS)
+    same_fill(64, False, got_u, want20[0])
+    cells = int(got_u.n_steps.sum()) * 64
+    mx = int(got_u.n_steps.max())
+    say(f"[3] fill W=64 -xpacbio scores B=128 L=20kb trace=False: equal "
+        f"to the traced plain fill's results; kernel {ms:.2f} ms "
+        f"({cells / ms / 1e6:.1f} GCUPS, {ms * 1e6 / mx:.1f} ns/step over "
+        f"{mx} steps); "
+        f"{show(fill_bound(got_u, args20[1], args20[3], 64, False))} on "
+        f"{card}")
+    del got_u
     res = got[0]
     cells = int(res.n_steps.sum()) * 64
     mx = int(res.n_steps.max())
-    stats["fill"].update(ms=ms, plain_ms=pms, library_ms=None,
+    stats["fill"].update(ms=tms, plain_ms=pms, library_ms=None,
                          **fill_bound(res, args20[1], args20[3], 64, True))
     say(f"[3] fill W=64 -xpacbio scores B=128 L=20kb trace=True: equal; "
-        f"kernel {ms:.2f} ms ({cells / ms / 1e6:.1f} GCUPS, "
-        f"{ms * 1e6 / mx:.1f} ns/step over {mx} steps), plain {pms:.1f} ms; "
-        f"{show(stats['fill'])} on {card}")
+        f"kernel {tms:.2f} ms ({cells / tms / 1e6:.1f} GCUPS, "
+        f"{tms * 1e6 / mx:.1f} ns/step over {mx} steps), plain {pms:.1f} "
+        f"ms; {show(stats['fill'])} on {card}")
     (rk, sk), plain20, wms, wpms = check_walk(p, 64, *got, reps=3)
     moves = int(sk[0].max())
     bad = int(sk[dtrace.SUMMARY_ROWS.index("bad")].sum())
@@ -404,29 +508,68 @@ def main():
         f" plain {wpms:.1f} ms; {show(stats['dtrace'])} on {card}")
     del got, rk, sk, args
 
-    # ---- 5: goldens through the CLI on CUDA
+    # ---- 4b: D1 duo window
+    t0 = time.time()
+    err["duo"] = 0
+
+    def duo_case(B, seed):
+        """(kernel call, plain call, summary buffer, down rows, block,
+        words before the geometry) on duo_geometry(seed, B), the
+        geometry behind a down descriptor block as the engine uploads
+        it, the kernel writing the down rows into the summary's last
+        three rows."""
+        c = kbench.duo_geometry(seed, B)
+        g = duo.pack_geom(c["rvbase"], c["qub"], c["rlen"], c["qlen"],
+                          c["cp0"], c["cp1"])
+        nd = cuda_gather.WORDS * 2 * B
+        blk = torch.from_numpy(np.concatenate(
+            [np.full(nd, -3, np.int32), g])).to(dev)
+        t = [torch.as_tensor(c[k], dtype=torch.int32, device=dev)
+             for k in ("score", "mi", "mj")]
+        summ = torch.full((17, B), -1, dtype=torch.int32, device=dev)
+        return (lambda: duo.duo_window(*t, blk[nd:], out=summ[14:]),
+                lambda: duo.duo_window_plain(*t, blk[nd:]), summ, t, blk, nd)
+
+    for B in (1, 48, 512):
+        run_k, run_p, summ, *_ = duo_case(B, B)
+        desc, _ = run_k()
+        want, dsum = run_p()
+        err["duo"] = max(err["duo"], int((desc - want).abs().max()),
+                         int((summ[14:] - dsum).abs().max()))
+        if not (torch.equal(desc, want) and torch.equal(summ[14:], dsum)
+                and bool((summ[:14] == -1).all())):
+            fail(f"duo window kernel != duo_window_plain at B={B}")
+    say(f"[4b] duo window equal to plain at B 1/48/512 (failed downs, "
+        f"clipped tp, both caps, cp at 0, bases past 2^31; "
+        f"{time.time() - t0:.0f} s)")
+
+    # ---- 5: every golden through the CLI on CUDA, duo on
     os.environ["MINIALIGN_TORCH_DEVICE"] = "cuda"
-    for args, golden, jax_sha in GOLDENS:
-        _build.reset_counts()
-        t0 = time.time()
-        out = run_cli(cli, args + [f"{DATA}/tref.fa", f"{DATA}/treads.fq"])
+    t5 = time.time()
+    for name, args, golden, mode, jax_sha, pre in GOLDENS:
+        with tempfile.TemporaryDirectory() as tmp:
+            if pre:
+                run_cli(cli, golden_args(pre, DATA, tmp))
+            _build.reset_counts()
+            t0 = time.time()
+            out = run_cli(cli, golden_args(args, DATA, tmp))
         dt = time.time() - t0
         counts = {k: _build.LAUNCHES[k] for k in MAPPER}
-        if not all(counts.values()):
-            fail(f"{golden}: a kernel was not launched: {counts}")
-        sha, body = sam_digest(out)
-        if sha != jax_sha:
-            fail(f"{golden}: SAM digest {sha} != JAX package's {jax_sha}")
+        circular = any(a.startswith("-c") for a in args)
+        if not all(counts[k] for k in MAPPER if k != "duo" or not circular):
+            fail(f"{golden} ({name}): a kernel was not launched: {counts}")
+        if jax_sha and sam_digest(out)[0] != jax_sha:
+            fail(f"{golden} ({name}): SAM digest {sam_digest(out)[0]} != "
+                 f"JAX package's {jax_sha}")
         with open(os.path.join(DATA, golden)) as f:
-            want = sam_digest(f.read())[1]
-        note = ""
-        if golden == "ref_tags.sam":
-            body, want = drop_reverse_md(body), drop_reverse_md(want)
-            note = " apart from reverse-strand MD"
-        if body != want:
-            fail(f"{golden}: not byte-identical modulo @PG{note}")
-        say(f"[5] {golden}: identical{note} ({dt:.1f} s, launches "
-            f"{counts})")
+            want = f.read()
+        if golden_view(out, mode) != golden_view(want, mode):
+            fail(f"{golden} ({name}): not identical ({mode})")
+        say(f"[5] {name}: {golden} identical ({mode}"
+            f"{', and to the JAX digest' if jax_sha else ''}; {dt:.1f} s, "
+            f"launches {counts})")
+    say(f"[5] all {len(GOLDENS)} goldens identical with the duo on "
+        f"({time.time() - t5:.0f} s)")
 
     # ---- 6: real size
     os.environ.update(BENCH_E2E_GENOME_MB="5", BENCH_E2E_READS=str(E2E_READS),
@@ -441,30 +584,40 @@ def main():
                      if i % 4 == 1)
     say(f"[6] workload: {E2E_READS} reads, {nbases} bases, 5 Mb genome "
         f"({time.time() - t0:.1f} s to write)")
-    _build.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    out = run_cli(cli, ["-t1", "-xpacbio", ref_fa, reads_fq])
-    wall = time.time() - t0
-    launches = {k: _build.LAUNCHES[k] for k in MAPPER}
-    sha, body = sam_digest(out)
-    if sha != E2E_SHA256:
-        fail(f"real-size SAM digest {sha} != JAX package's {E2E_SHA256}")
-    if not all(launches.values()):
-        fail(f"real size: a kernel was not launched: {launches}")
+    for env in ("1", "0"):
+        os.environ["MINIALIGN_DUO"] = env
+        _build.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = run_cli(cli, ["-t1", "-xpacbio", ref_fa, reads_fq])
+        wall = time.time() - t0
+        n = {k: _build.LAUNCHES[k] for k in MAPPER}
+        sha, body = sam_digest(out)
+        if sha != E2E_SHA256:
+            fail(f"real-size SAM digest {sha} (MINIALIGN_DUO={env}) != JAX "
+                 f"package's {E2E_SHA256}")
+        if not all(v for k, v in n.items() if k != "duo") or \
+                (n["duo"] > 0) != (env == "1"):
+            fail(f"real size, MINIALIGN_DUO={env}: launches {n}")
+        if n["gather"] != n["fill"]:
+            fail(f"real size: {n['gather']} gather launches for "
+                 f"{n['fill']} fill launches")
+        if env == "1":
+            launches = n
+            batches = sorted(_build.TRACED_FILL_B)
+            shapes = sorted(_build.GATHER_SHAPES,
+                            key=lambda x: (x[0] + x[1], x[2] + x[3]))
+        recs = sum(1 for line in body.splitlines()
+                   if not line.startswith("@"))
+        say(f"[6] real size -t1 -xpacbio, MINIALIGN_DUO={env}: SAM "
+            f"identical to the JAX package's ({recs} records); wall "
+            f"{wall:.2f} s{' (the first map)' if env == '1' else ''}, "
+            f"{nbases / wall / 1e6:.3f} Mbases/s, launches {n}, problems "
+            f"per traced fill launch {sorted(_build.TRACED_FILL_B)} on "
+            f"{card}")
+    del os.environ["MINIALIGN_DUO"]
     if not native.available():
         fail("the port's host library (csrc/host) did not load")
-    batches = sorted(_build.TRACED_FILL_B)
-    recs = sum(1 for line in body.splitlines() if not line.startswith("@"))
-    say(f"[6] real size -t1 -xpacbio: SAM identical to the JAX package's "
-        f"({recs} records); wall {wall:.2f} s, {nbases / wall / 1e6:.3f} "
-        f"Mbases/s, launches {launches}, host library loaded, problems per "
-        f"traced fill launch {batches} on {card}")
-    if launches["gather"] != launches["fill"]:
-        fail(f"real size: {launches['gather']} gather launches for "
-             f"{launches['fill']} fill launches")
-    shapes = sorted(_build.GATHER_SHAPES, key=lambda x: (x[0] + x[1],
-                                                         x[2] + x[3]))
     _build.reset_counts()
     busy, pwall, per = kbench.profiled(torch, lambda: run_cli(
         cli, ["-t1", "-xpacbio", ref_fa, reads_fq]))
@@ -488,10 +641,34 @@ def main():
         f"{Lb}; median of {len(shapes)} launches): equal to plain; kernel "
         f"{gms:.5f} ms device time, wrapper {gwms:.5f} ms a call on {card}")
 
-    # ---- 3/4 again at the E2E run's launch size
+    # ---- 4b again at the E2E run's duo launch size (a duo batch's one
+    # traced fill: TRACED_FILL_B of the duo run)
     if not batches:
         fail("real size: no traced fill launch")
-    Bs = batches[len(batches) // 2]
+    Bd = batches[len(batches) // 2]
+    run_k, run_p, summ, (sc, mi_, mj_), blk, nd = duo_case(Bd, 99)
+    lib = _build.library()
+    desc = torch.empty(cuda_gather.WORDS * 2 * Bd, dtype=torch.int32,
+                       device=dev)
+    stream = _build.stream_of(blk)
+    dargs = (sc.data_ptr(), mi_.data_ptr(), mj_.data_ptr(),
+             blk[nd:].data_ptr(), Bd, desc.data_ptr(), summ[14:].data_ptr(),
+             Bd, stream)
+    dms = kbench.device_ms(torch, lambda: lib.duo_window_launch(*dargs))
+    run_k()                                      # warm-up: allocations
+    _, dwms = timed(torch, run_k, 3, kbench.WRAP_CALLS)
+    (want, dsum), dpms = timed(torch, run_p, 3)
+    if not (torch.equal(desc, want) and torch.equal(summ[14:], dsum)):
+        fail(f"duo window kernel != duo_window_plain at B={Bd}")
+    stats["duo"].update(max_abs_err=err["duo"], ms=dms, plain_ms=dpms,
+                        library_ms=None,
+                        **bound(DUO_BYTES * Bd, DUO_OPS * Bd))
+    say(f"[4b] duo window at the E2E median duo launch (B={Bd}): equal to "
+        f"plain; kernel {dms:.5f} ms device time, wrapper {dwms:.5f} ms a "
+        f"call, plain {dpms:.4f} ms; {show(stats['duo'])} on {card}")
+
+    # ---- 3/4 again at the E2E run's launch size
+    Bs = Bd
     sub20 = [x[:Bs] for x in args20]
     nb = band.max_blocks_for(sub20[1].cpu().numpy(), sub20[3].cpu().numpy())
     fill_s = lambda: cuda_fill.fill_cuda(p, 64, nb, True, *sub20)  # noqa

@@ -28,8 +28,9 @@ from concurrent.futures import ThreadPoolExecutor
 PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
-SOURCES = ("fill.cu", "gather.cu", "dtrace.cu", "probe_subint32.cu",
-           "probe_lowprec.cu", "probe_bf16ops.cu", "probe_wordstream.cu")
+SOURCES = ("fill.cu", "gather.cu", "dtrace.cu", "duo.cu",
+           "probe_subint32.cu", "probe_lowprec.cu", "probe_bf16ops.cu",
+           "probe_wordstream.cu")
 HEADERS = ("probe_common.cuh",)
 LIB = os.path.join(BUILD, "libminialign_cuda.so")
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -37,7 +38,7 @@ FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
 
 # the mapper's kernels, then the step-mix probes P1-P4 (probes/)
-LAUNCHES = {"fill": 0, "gather": 0, "dtrace": 0,
+LAUNCHES = {"fill": 0, "gather": 0, "dtrace": 0, "duo": 0,
             "p1": 0, "p2": 0, "p3": 0, "p4": 0}
 TRACED_FILL_B: list[int] = []
 GATHER_SHAPES: list[tuple[int, int, int, int]] = []   # (Ba, Bb, La, Lb)
@@ -57,6 +58,7 @@ _SIGS = {
                            _P],
     "dtrace_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P,
                       _P, _P, _I, _P],
+    "duo_window_launch": [_P, _P, _P, _P, _I, _P, _P, _LL, _P],
     # the probes' entries end in (device index, stream)
     "p1_probe_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
     "p2_elementwise_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],

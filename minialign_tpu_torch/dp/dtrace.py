@@ -218,14 +218,24 @@ def _trace_params(p: ScoreParams, W: int):
 
 def dtrace(p: ScoreParams, W: int, masks: torch.Tensor,
            dirs: torch.Tensor, iheads: torch.Tensor, score: torch.Tensor,
-           ai: torch.Tensor, bj: torch.Tensor):
+           ai: torch.Tensor, bj: torch.Tensor,
+           out: torch.Tensor | None = None):
     """The walk on the masks' device: the CUDA kernel for CUDA tensors
-    (launches or raises), dtrace_plain for CPU tensors."""
+    (launches or raises), dtrace_plain for CPU tensors. out: a contiguous
+    (14, B) int32 tensor to take the summary (the engine's duo passes the
+    first rows of one buffer that also holds the down rows)."""
+    B, NB = dirs.shape
+    if out is not None and (out.shape != (len(SUMMARY_ROWS), B) or
+                            out.dtype != torch.int32 or
+                            out.device != masks.device or
+                            not out.is_contiguous()):
+        raise ValueError("dtrace: out must be a contiguous (14, B) int32 "
+                         "tensor on the masks' device")
     if masks.device.type == "cpu":
-        return dtrace_plain(p, W, masks, dirs, iheads, score, ai, bj)
+        rle, summ = dtrace_plain(p, W, masks, dirs, iheads, score, ai, bj)
+        return rle, summ if out is None else out.copy_(summ)
     if masks.device.type != "cuda":
         raise ValueError(f"no traceback for device {masks.device}")
-    B, NB = dirs.shape
     if masks.shape != (B, NB, BLK, 16) or iheads.shape != (B, NB):
         raise ValueError("dtrace: trace buffer shapes disagree")
     ins = [t.contiguous() for t in (masks, dirs, iheads, score, ai, bj)]
@@ -234,8 +244,8 @@ def dtrace(p: ScoreParams, W: int, masks: torch.Tensor,
             raise ValueError("dtrace: inputs must be int32 on one device")
     T = NB * BLK + 2
     rle = torch.zeros((B, T), dtype=torch.uint8, device=masks.device)
-    summ = torch.zeros((len(SUMMARY_ROWS), B), dtype=torch.int32,
-                       device=masks.device)
+    summ = out if out is not None else torch.zeros(
+        (len(SUMMARY_ROWS), B), dtype=torch.int32, device=masks.device)
     if B:
         lib = _build.library()
         prm = _trace_params(p, W)

@@ -25,6 +25,7 @@ from .dp.band import fill
 from .dp.cuda_gather import (desc_fields, gather_pair, pack_desc, pad_store,
                              upload)
 from .dp.dtrace import SUMMARY_ROWS, dtrace
+from .dp.duo import CAPU_ADD, duo_window, pack_geom
 from .dp.traceback import TraceResult, _identity
 from .index.build import MMIndex
 from .params import MapParams, ScoreParams
@@ -242,6 +243,12 @@ def _row_len(elen) -> int:
     return max(128, -(-int(elen.max()) // 128) * 128)
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A device result on the host: the engine's only reads (a harvest's
+    summary and run-length entries), each one waiting for the stream."""
+    return t.cpu().numpy()
+
+
 def _bucket(n: int) -> int:
     """Power-of-two length bucket, floor 512: requests are grouped by
     bucket so that a batch's rows and trace buffers stay near the size
@@ -262,14 +269,23 @@ class FillEngine:
     (dp/dtrace), all on the device; only scores, max positions,
     run-length entries and counters come back to the host.
 
-    pipeline.align_batch takes the device-store path when
-    `use_pallas` is set (the JAX engine's name for it), so it is always
-    True here. The fused down+up "duo" request is not served:
-    supports_duo is False and align_batch sends plain down/up requests.
+    pipeline.align_batch takes the device-store path when `use_pallas`
+    is set (the JAX engine's name for it), so it is always True here,
+    and it sends the fused down+up "duo" request (supports_duo) unless
+    MINIALIGN_DUO=0. A duo batch (minialign_tpu/extend.py:675-737
+    _duo_fn) runs on one stream with no host wait between its fills:
+    one upload (the down descriptor block and the geometry), the down
+    gather and untraced fill, the up windows computed on the device from
+    the down max (dp/duo), the up gather, the traced W=64 up fill and the
+    walk, then one summary read-back that holds the down rows too. The
+    JAX engine's _duo_slow (its two-step fallback for sides its TPU DMA
+    gather refuses: wrap, a negative start, L % 1024, L > 262,144) is not
+    carried: the port's gather takes all of them, and duo requests come
+    only for non-circular references.
     """
 
     use_pallas = True
-    supports_duo = False
+    supports_duo = True
 
     def __init__(self, score: ScoreParams, batch: int | None = None,
                  device: str | torch.device = "cuda"):
@@ -390,62 +406,122 @@ class FillEngine:
                 band.max_blocks_for(ma["elen"], mb["elen"]))
 
     def run(self, reqs: list) -> list:
-        """reqs: list of (kind, a, b, W), kind 'down' or 'up', a/b store
-        slice specs or raw code arrays. Returns, in request order,
-        (score, mi, mj, trace|None) per request; 'up' requests are
-        traced."""
+        """reqs: list of (kind, a, b, W) with kind 'down' or 'up', a/b
+        store slice specs or raw code arrays, or ('duo', a, b, W, meta)
+        with meta = (rid, rev, qidx, rlen, qlen, cp0, cp1) (extend_read).
+        Returns, in request order, (score, mi, mj, trace|None) per down
+        or up request ('up' requests are traced) and (score, mi, mj,
+        up score, up mi, up mj, trace) per duo request."""
         out = [None] * len(reqs)
         groups = {}
         for i, req in enumerate(reqs):
             kind, a, b, W = req[0], req[1], req[2], req[3]
-            if kind not in ("down", "up"):
-                raise ValueError(f"FillEngine serves 'down' and 'up' "
-                                 f"requests, not {kind!r}")
-            key = (kind == "up", W,
-                   _bucket(self._spec_len(a) + band.TAIL_N + 128),
+            if kind not in ("down", "up", "duo"):
+                raise ValueError(f"FillEngine serves 'down', 'up' and "
+                                 f"'duo' requests, not {kind!r}")
+            key = (kind, W, _bucket(self._spec_len(a) + band.TAIL_N + 128),
                    _bucket(self._spec_len(b) + band.TAIL_N + 128))
+            if kind == "duo":
+                # the JAX engine's duo groups (minialign_tpu/extend.py:
+                # 863-869): the up sides' buckets from their bounds
+                rlen, qlen = req[4][3], req[4][4]
+                key += (_bucket(min(2 * qlen + CAPU_ADD, rlen)
+                                + band.TAIL_N + 128),
+                        _bucket(qlen + band.TAIL_N + 128))
             groups.setdefault(key, []).append(i)
         # launch every batch before the first harvest: the device works
         # through the queue while the host copies results back
         pending = []
-        for (trace, W, _, _), idxs in groups.items():
+        for (kind, W, *_), idxs in groups.items():
             for k in range(0, len(idxs), self.batch):
                 sub = idxs[k:k + self.batch]
+                if kind == "duo":
+                    pending.append((sub, kind) + self._duo_batch(
+                        [reqs[i] for i in sub], W))
+                    continue
                 a, alen_d, b, blen_d, nb = self._batch(
                     [reqs[i][1] for i in sub], [reqs[i][2] for i in sub])
-                if trace:
+                if kind == "up":
                     res, bufs = fill(self.p, W, nb, True, a, alen_d, b,
                                      blen_d)
-                    pending.append((sub,) + dtrace(
+                    pending.append((sub, kind) + dtrace(
                         self.p, W, bufs.masks, bufs.dirs, bufs.iheads,
                         res.max_score, res.max_i, res.max_j))
                 else:
                     res = fill(self.p, W, nb, False, a, alen_d, b, blen_d)
-                    pending.append((sub, None, torch.stack(
+                    pending.append((sub, kind, None, torch.stack(
                         [res.max_score, res.max_i, res.max_j])))
-        for sub, rle, summ in pending:
-            if rle is None:
-                s3 = summ.cpu().numpy()
+        for sub, kind, rle, summ_d in pending:
+            summ = _host(summ_d)
+            if kind == "down":
                 for s, i in enumerate(sub):
-                    out[i] = (int(s3[0, s]), int(s3[1, s]),
-                              int(s3[2, s]), None)
-            else:
-                self._harvest(out, sub, rle, summ)
+                    out[i] = (int(summ[0, s]), int(summ[1, s]),
+                              int(summ[2, s]), None)
+                continue
+            ups = self._harvest(summ, rle)
+            for s, i in enumerate(sub):
+                out[i] = ups[s] if kind == "up" else (
+                    int(summ[-3, s]), int(summ[-2, s]), int(summ[-1, s]),
+                    *ups[s])
         return out
 
-    def _harvest(self, out, sub, rle_d, summary_d) -> None:
-        """Traced results: decode each problem's run-length entries into
-        paths (native.rle_paths, numpy fallback) and price its counters
+    def _duo_batch(self, reqs, W):
+        """Launches one duo batch; returns (rle, summary) on the device,
+        the summary (17, B): the walk's SUMMARY_ROWS, then the down score,
+        i and j. Nothing is read back: the up sides are sized on the host
+        from their bounds (tp0 <= rlen, tp1 <= qlen), and their rows and
+        block budget from those bounds give the same results as from the
+        exact lengths (band.max_blocks_for)."""
+        B = len(reqs)
+        ma = self._side_meta([r[1] for r in reqs])
+        mb = self._side_meta([r[2] for r in reqs])
+        rvbase, qub, rlen, qlen, cp0, cp1 = (np.zeros(B, np.int64)
+                                             for _ in range(6))
+        for s, (_, _, _, _, meta) in enumerate(reqs):
+            rid, rev, qidx, rlen[s], qlen[s], cp0[s], cp1[s] = meta
+            rvbase[s] = self._ref_rv[rid]
+            qub[s] = self._q_bases[qidx][0 if rev else 1]
+        desc = pack_desc([ma, mb])
+        blk = upload(np.concatenate(
+            [desc, pack_geom(rvbase, qub, rlen, qlen, cp0, cp1)]),
+            self.device)
+        down = blk[:len(desc)]
+        a, b = gather_pair(ma["store"], mb["store"], down, B,
+                           _row_len(ma["elen"]), _row_len(mb["elen"]))
+        elen = desc_fields(down)["elen"]
+        res = fill(self.p, W, band.max_blocks_for(ma["elen"], mb["elen"]),
+                   False, a, elen[:B], b, elen[B:])
+        nsr = len(SUMMARY_ROWS)
+        summ = torch.empty((nsr + 3, B), dtype=torch.int32,
+                           device=self.device)
+        up, _ = duo_window(res.max_score, res.max_i, res.max_j,
+                           blk[len(desc):], out=summ[nsr:])
+        la = np.minimum(2 * qlen + CAPU_ADD, rlen)
+        a, b = gather_pair(self._ref_store, self._q_store, up, B,
+                           _row_len(la), _row_len(qlen))
+        elen = desc_fields(up)["elen"]
+        res, bufs = fill(self.p, 64, band.max_blocks_for(la, qlen), True,
+                         a, elen[:B], b, elen[B:])
+        rle, _ = dtrace(self.p, 64, bufs.masks, bufs.dirs, bufs.iheads,
+                        res.max_score, res.max_i, res.max_j, out=summ[:nsr])
+        return rle, summ
+
+    def _harvest(self, summ, rle_d) -> list:
+        """Traced results from a summary on the host (SUMMARY_ROWS first)
+        and the walk's run-length entries on the device: (score, ai, bj,
+        trace) a problem, each problem's entries decoded into paths
+        (native.rle_paths, numpy fallback) and its counters priced
         (minialign_tpu/extend.py _trace_device_harvest)."""
         from . import native as _nat
         p = self.p
-        summ = summary_d.cpu().numpy()
         row = dict(zip(SUMMARY_ROWS, summ))
         ms, mi, mj = row["score"], row["ai"], row["bj"]
         n_ent, bad = row["n_ent"], row["bad"]
-        tmax = int(n_ent.max()) if len(sub) else 0
-        rle = rle_d[:, :tmax].cpu().numpy().astype(np.int32)
-        for s, i in enumerate(sub):
+        n = summ.shape[1]
+        tmax = int(n_ent.max()) if n else 0
+        rle = _host(rle_d[:, :tmax]).astype(np.int32)
+        out = []
+        for s in range(n):
             score = int(ms[s])
             ai, bj = int(mi[s]), int(mj[s])
             if score <= 0 or (ai == 0 and bj == 0):
@@ -472,7 +548,8 @@ class FillEngine:
                     identity=_identity(p, score, dcnt,
                                        int(row["e_pen"][s])),
                     gap_penalty=gap_penalty, ops_rev=ops_rev)
-            out[i] = (score, ai, bj, tr)
+            out.append((score, ai, bj, tr))
+        return out
 
 
 # ---------------------------------------------------------------------------

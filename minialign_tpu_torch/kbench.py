@@ -3,7 +3,7 @@ path's shapes, the step-mix probes (P1-P4), and profiles the end-to-end
 run, on one CUDA card.
 
     python minialign_tpu_torch/kbench.py [--root DIR] [--batches 128,8]
-        [--reps 3] [--e2e] [--probes]
+        [--reps 3] [--e2e [--duo 1,0]] [--probes]
 
 Gather: chip_smoke.py's phase 2 case (512 windows of 32 kb from a 10 MB
 store) and one launch of E2E_GATHER (one problem a side at about the
@@ -19,9 +19,13 @@ for each B of --batches: the traced and the untraced fill and the walk
 on the traced fill's buffers, each the median of --reps windows of
 CALLS calls timed with CUDA events. --e2e maps
 bench_e2e.make_workload's 100 x 20 kb reads on a 5 Mb genome with -t1
--xpacbio: one warm-up, three timed runs (host clock, ending in a
-synchronize), then one under torch.profiler, whose device events give
-the busy share, the time per kernel and the copies by direction.
+-xpacbio, once for each MINIALIGN_DUO setting of --duo (default "1,0":
+the fused duo, then the two-step path): one warm-up, three timed runs
+(host clock, ending in a synchronize), then one under torch.profiler,
+whose device events give the busy share, the time per kernel and the
+copies by direction; that run also counts the FillEngine.run calls,
+each call's fill launches, the requests by kind (duo problems, downs,
+ups), the duo's failed downs and the device's peak memory.
 
 --probes times every one-call case of the probes' mains at the tools'
 shapes (P1-P4, inputs from seed 0): each case's wrapper and its one
@@ -181,6 +185,40 @@ def gather_side(rng, L, B, kinds=GATHER_KINDS):
     side = dict(zip(SIDE, (np.asarray(x, np.int64) for x in zip(*rows))))
     side["elen"] = np.minimum(side["cap"], L)
     return flat, side
+
+
+def duo_geometry(seed=3, B=48):
+    """{score, mi, mj, rvbase, qub, rlen, qlen, cp0, cp1}: int64 arrays of
+    B duo problems for the up-window kernel (dp/duo.py), random ones and,
+    in the first rows, each edge case: a failed down (score 0, score < 0),
+    tp clipped at 1 and at rlen / qlen, cp at 0, lna_u below tp0 and at
+    it, reference and read bases past 2^31, one-base sequences."""
+    rng = np.random.default_rng(seed)
+    rlen = rng.integers(1, 60000, B)
+    qlen = rng.integers(1, 30000, B)
+    cols = dict(score=rng.integers(-50, 5000, B), mi=rng.integers(0, 4000, B),
+                mj=rng.integers(0, 4000, B), rvbase=rng.integers(0, 2**40, B),
+                qub=rng.integers(0, 2**40, B), rlen=rlen, qlen=qlen,
+                cp0=rng.integers(0, rlen), cp1=rng.integers(0, qlen))
+    edges = [
+        dict(score=0),
+        dict(score=-7),
+        dict(cp0=0, mi=0, cp1=0, mj=0),                # tp clipped at 1
+        dict(cp0=0, cp1=0),
+        dict(rlen=500, cp0=450, mi=3000),              # tp0 at rlen
+        dict(qlen=300, cp1=299, mj=2000),              # tp1 at qlen
+        dict(rlen=50000, cp0=40000, mi=100, qlen=20000, cp1=5,
+             mj=10),                                   # lna_u < tp0
+        dict(rlen=200, cp0=10, mi=20, qlen=20000, cp1=15000,
+             mj=100),                                  # lna_u = tp0
+        dict(rvbase=2**31, qub=2**31 + 5),
+        dict(rvbase=2**35 - 1, qub=2**33, score=0),
+        dict(rlen=1, qlen=1, cp0=0, cp1=0, mi=0, mj=0),
+    ]
+    for k, e in enumerate(edges[:B]):
+        for f, v in e.items():
+            cols[f][k] = v
+    return cols
 
 
 def gather_big(seed=1):
@@ -698,11 +736,17 @@ def h2d(per):
     return sum(n.values()), sum(v for k, v in n.items() if "Pageable" in k)
 
 
-def e2e(torch, pkg, emit):
+def e2e(torch, pkg, emit, duo="1"):
+    """Maps the E2E workload with MINIALIGN_DUO=duo: a warm-up, three
+    timed maps, then one under torch.profiler that also counts, per
+    FillEngine.run call (in the calling thread: align_batch's scheduler
+    threads share the engine), its fill launches and its requests by
+    kind, and the duo requests whose down failed (score 0: their up
+    windows are empty), and reads the device's peak memory."""
     from minialign_tpu_torch import _build, cli, extend, native
     os.environ.update(BENCH_E2E_GENOME_MB="5", BENCH_E2E_READS=str(E2E_READS),
                       BENCH_E2E_READLEN="20000",
-                      MINIALIGN_TORCH_DEVICE="cuda")
+                      MINIALIGN_TORCH_DEVICE="cuda", MINIALIGN_DUO=duo)
     sys.path.insert(0, HERE)
     import bench_e2e
     bench_e2e.CACHE = os.path.join(HERE, "minialign_tpu_torch", "build",
@@ -729,10 +773,10 @@ def e2e(torch, pkg, emit):
         t0 = time.time()
         run()
         walls.append(time.time() - t0)
-    # fill launches (batches) each FillEngine.run call holds, counted in
-    # the calling thread: align_batch's scheduler threads share the engine
-    runs, engine_run, engine_fill = [], extend.FillEngine.run, extend.fill
+    runs, kinds, failed = [], {}, [0]
+    engine_run, engine_fill = extend.FillEngine.run, extend.fill
     mine = threading.local()
+    lock = threading.Lock()
 
     def counted_fill(*args):
         mine.n += 1
@@ -741,10 +785,15 @@ def e2e(torch, pkg, emit):
     def counted_run(self, reqs):
         mine.n = 0
         out = engine_run(self, reqs)
-        runs.append(mine.n)
+        with lock:
+            runs.append(mine.n)
+            for r, o in zip(reqs, out):
+                kinds[r[0]] = kinds.get(r[0], 0) + 1
+                failed[0] += r[0] == "duo" and o[0] == 0
         return out
 
     _build.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     extend.FillEngine.run, extend.fill = counted_run, counted_fill
     try:
         busy, wall, per = profiled(torch, run)
@@ -752,13 +801,16 @@ def e2e(torch, pkg, emit):
         extend.FillEngine.run, extend.fill = engine_run, engine_fill
     batches = sorted(getattr(_build, "TRACED_FILL_B", []))
     n_h2d, n_pageable = h2d(per)
-    emit(kind="e2e", pkg=pkg, bases=nbases, first_s=first, walls_s=walls,
-         mbases_per_s=[nbases / w / 1e6 for w in walls],
+    emit(kind="e2e", pkg=pkg, duo=duo, bases=nbases, first_s=first,
+         walls_s=walls, mbases_per_s=[nbases / w / 1e6 for w in walls],
          profiled_wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
          launches=dict(_build.LAUNCHES), traced_fill_batches=batches,
          traced_fill_batch_median=(batches[len(batches) // 2]
                                    if batches else None),
-         fill_launches_per_engine_run=runs, host_library=native.available(),
+         engine_runs=len(runs), fill_launches_per_engine_run=runs,
+         requests=kinds, duo_failed_downs=failed[0],
+         peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20,
+         host_library=native.available(),
          h2d_copies=n_h2d, h2d_pageable=n_pageable,
          per_kernel_ms={k: round(v[0], 3) for k, v in per.items()},
          per_kernel_launches={k: v[1] for k, v in per.items()})
@@ -770,6 +822,8 @@ def main(argv=None):
     ap.add_argument("--batches", default="128,8")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--e2e", action="store_true")
+    ap.add_argument("--duo", default="1,0",
+                    help="MINIALIGN_DUO settings of the --e2e maps, in order")
     ap.add_argument("--probes", action="store_true")
     o = ap.parse_args(argv)
     root = os.path.abspath(o.root)
@@ -789,7 +843,8 @@ def main(argv=None):
     if batches:
         kernels(torch, pkg, batches, o.reps, emit)
     if o.e2e:
-        e2e(torch, pkg, emit)
+        for duo in o.duo.split(","):
+            e2e(torch, pkg, emit, duo)
     if o.probes:
         probes_bench(torch, pkg, emit)
         wrapper_stages(torch, pkg, emit)

@@ -1,6 +1,7 @@
 """The port's CLI on the CPU against the reference-binary goldens in
 tests/data (byte-identical modulo @PG), and its import closure without
-jax."""
+jax. run_golden is the golden suite's runner
+(tests/test_torch_golden_*.py)."""
 
 import io
 import os
@@ -36,6 +37,40 @@ def _run_cli(args, monkeypatch):
 
 def _strip_pg(text):
     return [line for line in text.splitlines() if not line.startswith("@PG")]
+
+
+def run_golden(name, monkeypatch, tmp_path, duo="1"):
+    """chip_smoke.GOLDENS's case `name` through the port's CLI on the
+    CPU with MINIALIGN_DUO=duo, compared with its golden as
+    tests/test_golden_sam.py compares it; the engine's duo batches
+    counted (some, duo on and a linear reference; none, duo off).
+    Returns the output."""
+    import chip_smoke
+    from minialign_tpu_torch.extend import FillEngine
+    _, args, golden, mode, _, pre = {g[0]: g for g in chip_smoke.GOLDENS}[
+        name]
+    monkeypatch.setenv("MINIALIGN_DUO", duo)
+    batches = []
+    duo_batch = FillEngine._duo_batch
+
+    def counted(self, reqs, W):
+        batches.append(len(reqs))
+        return duo_batch(self, reqs, W)
+    monkeypatch.setattr(FillEngine, "_duo_batch", counted)
+    if pre:
+        _run_cli(chip_smoke.golden_args(pre, DATA, str(tmp_path)),
+                 monkeypatch)
+    got = _run_cli(chip_smoke.golden_args(args, DATA, str(tmp_path)),
+                   monkeypatch)
+    with open(f"{DATA}/{golden}") as f:
+        want = f.read()
+    assert chip_smoke.golden_view(got, mode) == \
+        chip_smoke.golden_view(want, mode)
+    if duo != "1":
+        assert not batches
+    elif not any(a.startswith("-c") for a in args):
+        assert batches
+    return got
 
 
 @pytest.mark.parametrize("args,golden", [

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card (marker `cuda`; skipped where torch.cuda.is_available() is false).
+card (marker `cuda`; skipped where torch.cuda.is_available() is false),
+the whole golden suite through the CLI on the card, and the duo against
+the two-step path on the card.
 Run on a GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -10,6 +12,7 @@ termination, the batched plain fill keeps stepping it). The step-mix
 probes P1-P4 (minialign_tpu_torch.probes) must equal their plain twins
 exactly, one dtype of each kind."""
 
+import dataclasses
 import io
 import os
 import sys
@@ -18,8 +21,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from minialign_tpu_torch import _build, kbench
-from minialign_tpu_torch.dp import band, cuda_fill, cuda_gather, dtrace
+from minialign_tpu_torch.dp import band, cuda_fill, cuda_gather, dtrace, duo
 from minialign_tpu_torch.params import MapParams, ScoreParams
 from minialign_tpu_torch.probes import bf16ops, lowprec, subint32, wordstream
 from minialign_tpu_torch.probes._common import tensor
@@ -201,22 +205,104 @@ def test_gather_pair_kernel_on_edge_cases(L, B, padded, dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_cli_golden_on_cuda(dev, monkeypatch):
-    """ref_out.sam through the port's CLI on the card, every kernel
-    launched."""
+@pytest.mark.parametrize("name", [g[0] for g in chip_smoke.GOLDENS])
+def test_cli_golden_on_cuda(name, dev, monkeypatch, tmp_path):
+    """Every golden through the port's CLI on the card with the duo on
+    (the default), compared as tests/test_golden_sam.py compares it:
+    the fill, gather and walk launched, one gather a fill, the duo
+    kernel on a linear reference."""
     from minialign_tpu_torch import cli
+    _, args, golden, mode, _, pre = {g[0]: g for g in chip_smoke.GOLDENS}[
+        name]
     monkeypatch.setenv("MINIALIGN_TORCH_DEVICE", "cuda")
-    out = io.StringIO()
-    monkeypatch.setattr(sys, "stdout", out)
+    monkeypatch.delenv("MINIALIGN_DUO", raising=False)
+
+    def run(a):
+        out = io.StringIO()
+        monkeypatch.setattr(sys, "stdout", out)
+        assert cli.main(chip_smoke.golden_args(a, DATA, str(tmp_path))) == 0
+        return out.getvalue()
+    if pre:
+        run(pre)
     _build.reset_counts()
-    assert cli.main(["-t1", f"{DATA}/tref.fa", f"{DATA}/treads.fq"]) == 0
-    assert all(_build.LAUNCHES[k] > 0 for k in ("fill", "gather", "dtrace")), \
-        _build.LAUNCHES
-    assert _build.LAUNCHES["gather"] == _build.LAUNCHES["fill"]
-    with open(f"{DATA}/ref_out.sam") as f:
-        want = [x for x in f.read().splitlines() if not x.startswith("@PG")]
-    assert [x for x in out.getvalue().splitlines()
-            if not x.startswith("@PG")] == want
+    got = run(args)
+    n = dict(_build.LAUNCHES)
+    assert all(n[k] > 0 for k in ("fill", "gather", "dtrace")), n
+    assert n["gather"] == n["fill"]
+    if not any(a.startswith("-c") for a in args):
+        assert n["duo"] > 0, n
+    with open(f"{DATA}/{golden}") as f:
+        want = f.read()
+    assert chip_smoke.golden_view(got, mode) == \
+        chip_smoke.golden_view(want, mode)
+
+
+# ---- D1: the duo
+
+
+@pytest.mark.parametrize("B", [1, 48, 512])
+def test_duo_window_kernel_matches_plain(B, dev):
+    """kbench.duo_geometry's edge cases (failed downs, clipped tp, both
+    caps, cp at 0, bases past 2^31), the geometry read from behind a
+    down descriptor block as the engine uploads it, the down rows
+    written into the rows of a summary buffer."""
+    c = kbench.duo_geometry(seed=B, B=B)
+    g = duo.pack_geom(c["rvbase"], c["qub"], c["rlen"], c["qlen"], c["cp0"],
+                      c["cp1"])
+    blk = torch.from_numpy(np.concatenate(
+        [np.full(cuda_gather.WORDS * 2 * B, -3, np.int32), g])).to(dev)
+    geom = blk[cuda_gather.WORDS * 2 * B:]
+    t = [torch.as_tensor(c[k], dtype=torch.int32, device=dev)
+         for k in ("score", "mi", "mj")]
+    summ = torch.full((17, B), -1, dtype=torch.int32, device=dev)
+    _build.reset_counts()
+    desc, _ = duo.duo_window(*t, geom, out=summ[14:])
+    assert _build.LAUNCHES["duo"] == 1
+    want, dsum = duo.duo_window_plain(*t, geom)
+    assert torch.equal(desc, want) and torch.equal(summ[14:], dsum)
+    assert (summ[:14] == -1).all()
+
+
+def _mapped(regs):
+    return [None if r is None else (r.n_uniq, [
+        (a.mapq, a.aid, dataclasses.asdict(a.aln)) for a in r.alns])
+        for r in regs]
+
+
+@pytest.mark.parametrize("case", ["reads", "past_262kb"])
+def test_engine_duo_matches_two_step_on_cuda(case, dev, monkeypatch):
+    """align_batch on the card with MINIALIGN_DUO=1 (the duo batch: one
+    upload, gather, fill, duo window, gather, fill, walk) and =0 (down,
+    then up): every Reg and Aln field equal. past_262kb maps a 270 kb
+    read, past the TPU kernels' 2^18-character sides, which the JAX duo
+    sends to its two-step _duo_slow."""
+    from minialign_tpu_torch import params as tparams
+    from minialign_tpu_torch.extend import FillEngine
+    from minialign_tpu_torch.index.build import build_index
+    from minialign_tpu_torch.pipeline import align_batch
+    rng = np.random.default_rng(31)
+    long = case == "past_262kb"
+    genome = rng.integers(0, 4, 400_000 if long else 60_000).astype(np.int8)
+    lens = [270_000] if long else [int(rng.integers(1500, 6000))
+                                   for _ in range(8)]
+    reads = []
+    for n in lens:
+        st = int(rng.integers(0, len(genome) - n))
+        r = kbench.mutate(rng, genome[st:st + n].astype(np.int64), 0.05)
+        reads.append(np.asarray(r if rng.random() < 0.5 else 3 - r[::-1],
+                                np.int8))
+    assert max(map(len, reads)) > 2**18 or not long
+    mi = build_index(tparams.IndexParams(k=15, w=10), ["c"], [genome])
+    mp = tparams.MapParams()
+    out = {}
+    for env in ("1", "0"):
+        monkeypatch.setenv("MINIALIGN_DUO", env)
+        _build.reset_counts()
+        regs = align_batch(mp, mi, reads, FillEngine(mp.score, device=dev))
+        out[env] = (_mapped(regs), dict(_build.LAUNCHES))
+    assert out["1"][1]["duo"] > 0 and out["0"][1]["duo"] == 0
+    assert out["1"][0] == out["0"][0]
+    assert sum(r is not None for r in out["1"][0]) >= (1 if long else 6)
 
 
 # ---- the step-mix probes P1-P4
