@@ -12,7 +12,7 @@ Phases, in order; any failure exits non-zero before the result line:
      unpadded stores), then 512 windows of 32 kb from a 10 MB store,
      timed as device time and as the wrapper's time a call
   3  K1 fill kernel == fill_plain (both score models x W 16/32/64 x
-     trace on/off at B=128, ~2 kb; the edge cases of edge_pairs at W 16
+     trace on/off at B=128, ~1 kb; the edge cases of edge_pairs at W 16
      and 64; a max in the last block; W=64 with the -xpacbio scores at
      B=128 x 20 kb), with times, ns/step and the bound
   4  K3 traceback kernel == dtrace_plain on phase 3's trace buffers,
@@ -43,6 +43,24 @@ Phases, in order; any failure exits non-zero before the result line:
      at 2^17 steps); then P1 and P2 on kbench's edge inputs (the types'
      ends, an odd size, misaligned views), and the step timer at B=128
      and 1024, int16 also from inputs whose adds wrap
+  9  the parallel paths (minialign_tpu_torch.parallel): (a) the D3
+     lookup kernel == lookup_plain word for word on kbench.LOOKUP_KINDS
+     at 1, 2 and 8 shards, then timed (device time, the wrapper's time,
+     the plain version, torch.searchsorted on the same table) for the
+     median E2E read's hashes against the E2E index split 2 ways (the
+     main path's shape: seeding looks up a read a call; the kernels line
+     reports it), for every E2E read's hashes in one launch and for 10^5
+     queries against 10^7 keys split 2 ways; (b) ShardedIndex.lookup ==
+     MMIndex.lookup on those hashes, and align_batch_sharded over
+     [cuda:0, cuda:0] with the native seeding off == align_batch on one
+     engine, record for record (the lookup's launches counted there);
+     (c) the E2E workload with -t1 -xpacbio -1262144 -v2 through the CLI
+     in one process, then with MINIALIGN_PROC_WORKERS=2 and 4: the three
+     outputs equal byte for byte, each (without @PG) the JAX digest, the
+     remaps and every process's launches counted (MINIALIGN_LAUNCH_LOG),
+     the walls printed with the host's core count; (d) two dist_host
+     processes joined at 127.0.0.1, both on cuda:0, merged == (c)'s
+     one-process output
   8  neither jax nor minialign_tpu imported; the kernels' JSON line,
      then the result line
 
@@ -69,7 +87,10 @@ DATA = os.path.join(ROOT, "tests", "data")
 #   python -m minialign_tpu.cli -t1 -xpacbio ref_g5.0_r100_l20000.fa \
 #       reads_g5.0_r100_l20000.fq
 # (30.3 s on an 8-core x86-64 CPU; 100 SAM records after @HD and @SQ).
+# The same command with -1262144 (batches of 262,144 bases, so that
+# worker processes split the reads) gives the same digest (45.1 s).
 E2E_READS = 100
+E2E_BATCH = "-1262144"
 E2E_SHA256 = ("ac52c9b48c971877583630a173e387fc"
               "189fb403037d3baf904dcfbdfb91832a")
 # Every golden of tests/data through the port's CLI, as
@@ -160,6 +181,8 @@ KERNELS = {
                "minialign_tpu/dp/dtrace.py:66"),
     "duo": ("minialign_tpu_torch/csrc/duo.cu",
             "minialign_tpu/extend.py:675"),
+    "lookup": ("minialign_tpu_torch/csrc/lookup.cu",
+               "minialign_tpu/parallel/shard.py:95"),
     "p1": ("minialign_tpu_torch/csrc/probe_subint32.cu",
            "tests/tools/probe_subint32.py:15"),
     "p2": ("minialign_tpu_torch/csrc/probe_lowprec.cu",
@@ -169,7 +192,9 @@ KERNELS = {
     "p4": ("minialign_tpu_torch/csrc/probe_wordstream.cu",
            "tests/tools/probe_wordstream.py:26"),
 }
+U64_END = 1 << 64
 MAPPER = ("fill", "gather", "dtrace", "duo")  # the CLI's kernels
+SHARDED = ("fill", "gather", "dtrace", "lookup")  # the sharded pipeline's
 PROBES = ("p1", "p2", "p3", "p4")            # the probes' kernels
 
 
@@ -290,8 +315,204 @@ def run_cli(cli, args):
     return buf.getvalue()
 
 
+def run_cli_procs(args, nproc, tmp):
+    """The port's CLI as a process (with MINIALIGN_PROC_WORKERS=nproc):
+    (stdout, stderr, wall s, launches of it and its workers)."""
+    logs = tempfile.mkdtemp(dir=tmp)
+    env = dict(os.environ, MINIALIGN_TORCH_DEVICE="cuda",
+               MINIALIGN_PROC_WORKERS=str(nproc), MINIALIGN_LAUNCH_LOG=logs)
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "minialign_tpu_torch"] + args,
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.time() - t0
+    if r.returncode != 0:
+        fail(f"CLI with {nproc} process(es) exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    from minialign_tpu_torch import _build
+    return r.stdout, r.stderr, wall, _build.worker_launches(logs)
+
+
+def phase9(np, torch, card, stats, ref_fa, reads_fq):
+    """The parallel paths; returns the lookup kernel's launches on the
+    sharded pipeline's run (9b)."""
+    from minialign_tpu_torch import _build, cli, kbench, native
+    from minialign_tpu_torch.extend import FillEngine
+    from minialign_tpu_torch.index.build import build_index
+    from minialign_tpu_torch.index.sketch import sketch
+    from minialign_tpu_torch.io import bseq
+    from minialign_tpu_torch.params import IndexParams
+    from minialign_tpu_torch.parallel import cuda_lookup, distributed, shard
+    from minialign_tpu_torch.pipeline import align_batch
+    dev = torch.device("cuda", 0)
+    lib = _build.library()
+    timed = kbench.timed
+
+    # (a) the kernel against its plain version on the edge tables
+    t0 = time.time()
+    err, n_cases = 0, 0
+    for kind in kbench.LOOKUP_KINDS:
+        keys, off = kbench.lookup_table(kind, build_index, IndexParams)
+        q = kbench.lookup_queries(keys)
+        for n in (1, 2, 8):
+            t = kbench.lookup_tensors(
+                torch, shard.shard_index_arrays(keys, off, n), q, dev)
+            got, want = cuda_lookup.lookup(*t), cuda_lookup.lookup_plain(*t)
+            err = max([err] + [int((g - w).abs().max()) if g.numel() else 0
+                               for g, w in zip(got, want)])
+            if not all(map(torch.equal, got, want)):
+                fail(f"lookup kernel != lookup_plain: {kind}, {n} shards")
+            n_cases += 1
+    say(f"[9a] lookup equal to plain, word for word, on {n_cases} cases "
+        f"({', '.join(kbench.LOOKUP_KINDS)} at 1/2/8 shards; "
+        f"{time.time() - t0:.1f} s)")
+
+    o = cli.Opts()
+    cli.parse_argv(o, ["-xpacbio"])
+    cli.finalize(o)
+    ip, mp = cli.make_params(o)
+    ref = list(bseq.read_seqs(ref_fa))
+    mi = build_index(ip, [x.name for x in ref], [x.codes for x in ref])
+    reads = [x.codes for x in bseq.read_seqs(reads_fq)]
+    # seeding looks up one read's hashes a call (chain.collect_seeds):
+    # the median read's is the main path's shape
+    per_read = sorted((sketch(np.asarray(c, np.int64) & 3, mi.k, mi.w)[0]
+                       for c in reads), key=len)
+    q_read = np.asarray(per_read[len(per_read) // 2], np.uint64)
+    q_e2e = np.concatenate(per_read).astype(np.uint64)
+    rng = np.random.default_rng(9)
+    big_keys = np.unique(rng.integers(0, U64_END, 10_200_000,
+                                      dtype=np.uint64))[:10_000_000]
+    rng.shuffle(big_keys)
+    big_off = np.concatenate([[0], np.cumsum(rng.integers(
+        1, 5, len(big_keys)))]).astype(np.uint32)
+    big_q = np.concatenate([rng.choice(big_keys, 50_000),
+                            rng.integers(0, U64_END, 50_000,
+                                         dtype=np.uint64)])
+    res = {}
+    for name, keys, off, q in (("read", mi.keys, mi.offsets, q_read),
+                               ("e2e", mi.keys, mi.offsets, q_e2e),
+                               ("big", big_keys, big_off, big_q)):
+        tabs = shard.shard_index_arrays(keys, off, 2)
+        kt, st_, ct, qt = kbench.lookup_tensors(torch, tabs, q, dev)
+        S, K = kt.shape
+        Q = len(q)
+        so = torch.empty((S, Q), dtype=torch.int64, device=dev)
+        co = torch.empty_like(so)
+        stream = _build.stream_of(kt)
+        ptrs = (kt.data_ptr(), st_.data_ptr(), ct.data_ptr(), S, K,
+                qt.data_ptr(), Q, so.data_ptr(), co.data_ptr(), stream)
+        ms = kbench.device_ms(torch, lambda: lib.lookup_launch(*ptrs),
+                              calls=20)
+        run = lambda: cuda_lookup.lookup(kt, st_, ct, qt)  # noqa: E731
+        got = run()
+        _, wms = timed(torch, run, 3, 20)
+        want, pms = timed(torch, lambda: cuda_lookup.lookup_plain(
+            kt, st_, ct, qt), 3)
+        if not all(map(torch.equal, got, want)):
+            fail(f"lookup kernel != lookup_plain at the {name} size")
+        kf = kt ^ cuda_lookup.SIGN
+        qf = (qt ^ cuda_lookup.SIGN)[None, :].expand(S, -1).contiguous()
+        lms = kbench.device_ms(torch, lambda: torch.searchsorted(kf, qf),
+                               calls=20)
+        found = int((got[1] > 0).sum())
+        nb = kbench.lookup_bytes(tabs[0], q, found)
+        bd = bound(nb, kbench.lookup_ops(tabs[0], q))
+        res[name] = dict(ms=ms, wrapper_ms=wms, plain_ms=pms,
+                         library_ms=lms, bound_bytes=nb, **bd)
+        say(f"[9a] lookup {name}: {Q} queries against {len(keys)} keys in "
+            f"2 shards of {K} ({found} hits): equal to plain; kernel "
+            f"{ms:.5f} ms device time, wrapper {wms:.5f} ms a call, "
+            f"torch.searchsorted {lms:.5f} ms device time, plain "
+            f"{pms:.3f} ms; {show(bd)}, {nb} bytes on {card}")
+        del kt, st_, ct, qt, so, co, kf, qf, got, want
+    stats["lookup"].update(max_abs_err=err, **res["read"], e2e=res["e2e"],
+                           big=res["big"])
+    del big_keys, big_off, big_q
+
+    # (b) the sharded index and pipeline over [cuda:0, cuda:0]
+    mesh = [dev, dev]
+    t0 = time.time()
+    smi = shard.ShardedIndex(mi, mesh)
+    if not all(np.array_equal(g, w) for g, w in
+               zip(smi.lookup(q_e2e), mi.lookup(q_e2e))):
+        fail("ShardedIndex.lookup != MMIndex.lookup on the E2E hashes")
+    want = align_batch(mp, mi, reads, FillEngine(mp.score, device=dev))
+    lib_, tried = native._lib, native._tried
+    native._lib, native._tried = None, True          # the Python seeding
+    try:
+        _build.reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        got = shard.align_batch_sharded(mp, mi, reads, mesh)
+        torch.cuda.synchronize()
+        swall = time.time() - t1
+        n = {k: _build.LAUNCHES[k] for k in SHARDED + ("duo",)}
+    finally:
+        native._lib, native._tried = lib_, tried
+    if got != want:
+        fail("align_batch_sharded over [cuda:0, cuda:0] != align_batch")
+    if not all(n[k] for k in SHARDED) or n["duo"]:
+        fail(f"sharded pipeline: launches {n}")
+    say(f"[9b] ShardedIndex.lookup == MMIndex.lookup on {len(q_e2e)} "
+        f"hashes; align_batch_sharded over [cuda:0, cuda:0], native "
+        f"seeding off: {sum(r is not None for r in got)} of {len(reads)} "
+        f"reads mapped, equal to align_batch, record for record "
+        f"({swall:.2f} s; launches {n}; {time.time() - t0:.1f} s)")
+
+    # (c) the E2E workload in 1, 2 and 4 processes
+    args = ["-t1", "-xpacbio", E2E_BATCH, "-v2", ref_fa, reads_fq]
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for nproc in (1, 2, 4):
+            out, errs, wall, w = run_cli_procs(args, nproc, tmp)
+            sha, _ = sam_digest(out)
+            if sha != E2E_SHA256:
+                fail(f"{nproc} process(es): SAM digest {sha} != JAX "
+                     f"package's {E2E_SHA256}")
+            if not all(w[k] for k in MAPPER):
+                fail(f"{nproc} process(es): launches {w}")
+            rem = [x for x in errs.splitlines() if "remapped" in x]
+            outs[nproc] = out
+            say(f"[9c] E2E {' '.join(args[:4])} with {nproc} process(es): "
+                f"SAM identical to the JAX package's; wall {wall:.2f} s "
+                f"({os.cpu_count()} cores); launches {w}; "
+                f"{rem[0].split('] ')[-1] if rem else 'no merge'} on {card}")
+        if not outs[1] == outs[2] == outs[4]:
+            fail("1, 2 and 4 processes: outputs differ")
+        say("[9c] 1, 2 and 4 processes: outputs equal byte for byte, @PG "
+            "included")
+
+        # (d) two hosts on one card, merged
+        from socket import socket
+        with socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            coord = f"127.0.0.1:{sk.getsockname()[1]}"
+        hosts = [os.path.join(tmp, f"host{h}.out") for h in range(2)]
+        env = dict(os.environ, MINIALIGN_TORCH_DEVICE="cuda")
+        t0 = time.time()
+        ps = [subprocess.Popen(
+            [sys.executable, "-m", "minialign_tpu_torch.parallel.dist_host",
+             str(h), "2", coord, hosts[h]] + args, cwd=ROOT, env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+            for h in range(2)]
+        for p in ps:
+            _, e = p.communicate(timeout=600)
+            if p.returncode != 0:
+                fail(f"dist_host exited {p.returncode}: {e[-2000:]}")
+        buf = io.StringIO()
+        n_remap = distributed.merge_host_outputs(args, hosts, buf)
+        if buf.getvalue() != outs[1]:
+            fail("two dist_host processes merged != one process")
+        say(f"[9d] two dist_host processes (gloo at {coord}, both on "
+            f"cuda:0) merged equal to one process, @PG included "
+            f"({n_remap} batch(es) remapped; {time.time() - t0:.1f} s)")
+    return n["lookup"]
+
+
 def main():
     sys.path.insert(0, ROOT)
+    os.chdir(ROOT)          # the CLI's worker processes run from here
     try:
         import numpy as np
         import torch
@@ -488,6 +709,17 @@ def main():
         f"{mx} steps); "
         f"{show(fill_bound(got_u, args20[1], args20[3], 64, False))} on "
         f"{card}")
+    # D2, the JAX package's fused gather + fill, is the gather then this
+    # fill here: its bound is theirs added, at these shapes (the gather
+    # reads each row's bases and its descriptor, writes the padded rows)
+    B20 = args20[0].shape[0]
+    g_bytes = (int(args20[1].long().sum() + args20[3].long().sum())
+               + B20 * (args20[0].shape[1] + args20[2].shape[1])
+               + 2 * B20 * 4 * cuda_gather.WORDS)
+    gb, fb = (bound(g_bytes, 0)["bound_ms"],
+              fill_bound(got_u, args20[1], args20[3], 64, False)["bound_ms"])
+    say(f"[3] D2 (gather_pair, then the untraced fill) at B=128 x 20 kb: "
+        f"bound {gb + fb:.6f} ms = K2's {gb:.6f} + K1's {fb:.6f}")
     del got_u
     res = got[0]
     cells = int(res.n_steps.sum()) * 64
@@ -550,11 +782,17 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             if pre:
                 run_cli(cli, golden_args(pre, DATA, tmp))
+            # -tN runs N worker processes: they log their launches here
+            logs = os.path.join(tmp, "launches")
+            os.mkdir(logs)
+            os.environ["MINIALIGN_LAUNCH_LOG"] = logs
             _build.reset_counts()
             t0 = time.time()
             out = run_cli(cli, golden_args(args, DATA, tmp))
+            del os.environ["MINIALIGN_LAUNCH_LOG"]
+            workers = _build.worker_launches(logs)
         dt = time.time() - t0
-        counts = {k: _build.LAUNCHES[k] for k in MAPPER}
+        counts = {k: _build.LAUNCHES[k] + workers[k] for k in MAPPER}
         circular = any(a.startswith("-c") for a in args)
         if not all(counts[k] for k in MAPPER if k != "duo" or not circular):
             fail(f"{golden} ({name}): a kernel was not launched: {counts}")
@@ -782,6 +1020,9 @@ def main():
             f"(kernel equal to plain at 64 and {n} steps at B 128 and 1024"
             f"{', and from inputs that wrap' if dt == 'int16' else ''}; at "
             f"{n} steps kernel {ms:.3f} ms, plain {pms:.1f} ms) on {card}")
+
+    # ---- 9: the parallel paths
+    launches["lookup"] = phase9(np, torch, card, stats, ref_fa, reads_fq)
 
     # ---- 8
     bad = sorted(m for m in sys.modules

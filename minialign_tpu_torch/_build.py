@@ -12,12 +12,17 @@ where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels. TRACED_FILL_B lists the
 problems of each traced fill launch (the launch size the fill and walk
 kernels see on the main path), GATHER_SHAPES the rows and row lengths
-of each side of each gather launch.
+of each side of each gather launch. With $MINIALIGN_LAUNCH_LOG set to a
+directory, a process writes its LAUNCHES there at exit
+(launches.<pid>.json), so that a run whose kernels launch in worker
+processes (the CLI's -tN) can count them (worker_launches).
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
+import json
 import os
 import shutil
 import subprocess
@@ -28,7 +33,7 @@ from concurrent.futures import ThreadPoolExecutor
 PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
-SOURCES = ("fill.cu", "gather.cu", "dtrace.cu", "duo.cu",
+SOURCES = ("fill.cu", "gather.cu", "dtrace.cu", "duo.cu", "lookup.cu",
            "probe_subint32.cu", "probe_lowprec.cu", "probe_bf16ops.cu",
            "probe_wordstream.cu")
 HEADERS = ("probe_common.cuh",)
@@ -37,8 +42,9 @@ ARCH = "arch=compute_90a,code=sm_90a"
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
 
-# the mapper's kernels, then the step-mix probes P1-P4 (probes/)
-LAUNCHES = {"fill": 0, "gather": 0, "dtrace": 0, "duo": 0,
+# the mapper's kernels, the sharded index's lookup (parallel/), then the
+# step-mix probes P1-P4 (probes/)
+LAUNCHES = {"fill": 0, "gather": 0, "dtrace": 0, "duo": 0, "lookup": 0,
             "p1": 0, "p2": 0, "p3": 0, "p4": 0}
 TRACED_FILL_B: list[int] = []
 GATHER_SHAPES: list[tuple[int, int, int, int]] = []   # (Ba, Bb, La, Lb)
@@ -59,6 +65,7 @@ _SIGS = {
     "dtrace_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P,
                       _P, _P, _I, _P],
     "duo_window_launch": [_P, _P, _P, _P, _I, _P, _P, _LL, _P],
+    "lookup_launch": [_P, _P, _P, _I, _LL, _P, _LL, _P, _P, _P],
     # the probes' entries end in (device index, stream)
     "p1_probe_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
     "p2_elementwise_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
@@ -156,6 +163,28 @@ def reset_counts() -> None:
             LAUNCHES[k] = 0
         TRACED_FILL_B.clear()
         GATHER_SHAPES.clear()
+
+
+def _log_launches(log_dir: str) -> None:
+    with open(os.path.join(log_dir, f"launches.{os.getpid()}.json"),
+              "w") as f:
+        json.dump(LAUNCHES, f)
+
+
+def worker_launches(log_dir: str) -> dict[str, int]:
+    """The launches, by kernel, of every process that logged to log_dir
+    ($MINIALIGN_LAUNCH_LOG), summed."""
+    out = dict.fromkeys(LAUNCHES, 0)
+    for name in os.listdir(log_dir):
+        if name.startswith("launches."):
+            with open(os.path.join(log_dir, name)) as f:
+                for k, v in json.load(f).items():
+                    out[k] += v
+    return out
+
+
+if os.environ.get("MINIALIGN_LAUNCH_LOG"):
+    atexit.register(_log_launches, os.environ["MINIALIGN_LAUNCH_LOG"])
 
 
 def check(lib, rc: int, what: str) -> None:

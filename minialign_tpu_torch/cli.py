@@ -9,10 +9,15 @@ Usage mirrors the reference:
     minialign-tpu [options] index.mai reads.fq > out.sam  (map w/ index)
 
 Carried from the JAX package's minialign_tpu/cli.py for the port, with
-its imports changed and three parts of `main` left out: the JAX
-device-mesh probe, the worker processes behind -tN (here -tN is the
-in-process threaded _map_block pipeline) and the "Build: tpu" tag. The
-device comes from $MINIALIGN_TORCH_DEVICE (default cuda; see device.py).
+its imports changed, the JAX compile-cache setup and the "Build: tpu"
+tag left out of `main`, and the device mesh taken from the CUDA devices
+(parallel/shard.py) instead of jax.devices(). As there, -tN with N > 1
+runs N worker processes (parallel/hostworker.py; _nproc_for has the
+count policy) whose outputs merge rank-ordered, byte-identical to one
+process; the parent builds the kernels and the host library before it
+starts them, without importing torch, and readies the merge while they
+map. The device comes from $MINIALIGN_TORCH_DEVICE (default
+cuda; see device.py).
 """
 
 from __future__ import annotations
@@ -22,16 +27,16 @@ import sys
 import time
 
 from . import __version__
-from .device import env_device
-from .extend import FillEngine
 from .index.build import build_index, load_blocks, save_blocks
 from .io import bseq
-from .io.sam import Blast6Writer, MafWriter, PafWriter, SamWriter
 from .params import (FMT_BLAST6, FMT_MAF, FMT_PAF, FMT_SAM, MM_AVA, MM_COMP,
                      MM_OMIT_REP, IndexParams, MapParams, ScoreParams, TAG_AS,
                      TAG_CG, TAG_CO, TAG_ID, TAG_IH, TAG_MD, TAG_NH, TAG_NM,
                      TAG_RG, TAG_SA, TAG_SQ, TAG_XS)
-from .pipeline import align_batch
+
+# The engine, the pipeline and the writers bring torch in: they are
+# imported where they are used, so that a -tN parent starts its workers
+# without waiting for torch (_align_procs).
 
 # preset tree (minialign.c:5848-5891)
 _PRESETS = {
@@ -621,6 +626,8 @@ def _map_block(o: Opts, log, wr, engine, mp, mi, queries: list,
     state across batches (PARITY.md item 8) — so output bytes are
     identical at any -t, matching the repo-wide -t1-schedule parity
     contract."""
+    from .pipeline import align_batch
+
     tb = {"rlen": 0}
 
     if o.nth <= 1:
@@ -689,6 +696,69 @@ def _map_block(o: Opts, log, wr, engine, mp, mi, queries: list,
     return n_reads
 
 
+def _nproc_for(nth: int) -> int:
+    """Worker-process count for the mapping phase. `-tN` IS the worker
+    count (the reference's contract: -t sizes the pt pool driving
+    mm_align_worker, minialign.c:4729, 6166-6203), clamped to the
+    visible cores — N processes on a smaller host only contend, and
+    each carries a full engine. MINIALIGN_PROC_WORKERS overrides both
+    ways (0/1 forces single-process, >1 forces a width, e.g. to
+    oversubscribe or to exercise the merge on a small host)."""
+    import os
+    env = os.environ.get("MINIALIGN_PROC_WORKERS")
+    if env is not None:
+        return max(1, int(env))
+    return max(1, min(nth, os.cpu_count() or 1))
+
+
+def _prebuild() -> None:
+    """Build the host library and, for a CUDA run, the kernels before the
+    worker processes start, so that they do not all build them at once.
+    Compile only: the parent opens no CUDA context."""
+    from . import _build, native
+    from .device import env_device_type
+    native.available()
+    if env_device_type() == "cuda":
+        _build.build()
+
+
+def _align_procs(o: Opts, log, argv: list, nproc: int) -> int:
+    """Run the mapping with N local worker processes (round-robin
+    batch shares) and merge rank-ordered, byte-identical to the
+    single-process stream. See parallel/hostworker.py."""
+    import os
+    import subprocess
+    import sys as _sys
+    import tempfile
+
+    _prebuild()
+    with tempfile.TemporaryDirectory() as td:
+        outs = [os.path.join(td, f"w{h}.out") for h in range(nproc)]
+        procs = [subprocess.Popen(
+            [_sys.executable, "-m",
+             "minialign_tpu_torch.parallel.hostworker",
+             str(h), str(nproc), outs[h]] + list(argv),
+            stdout=subprocess.DEVNULL) for h in range(nproc)]
+        # the merge's own start-up (argv, index, device context) runs
+        # while the workers map, not after them
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .parallel import distributed
+        with ThreadPoolExecutor(1) as pool:
+            setup = pool.submit(distributed.merge_setup, list(argv))
+            rcs = [p.wait() for p in procs]
+            if any(rcs):
+                log("E", "main_align",
+                    f"worker process failed (rcs={rcs}).")
+                return 1
+            n_remap = distributed.merge_host_outputs(
+                list(argv), outs, sys.stdout, setup.result())
+        log(2, "main_align",
+            f"{nproc} worker processes merged ({n_remap} batch(es) "
+            "remapped under the true rlen chain).")
+    return 0
+
+
 def main(argv=None) -> int:
     from . import native as _native
     _native.tune_malloc()
@@ -747,6 +817,28 @@ def main(argv=None) -> int:
         log(1, "main_align", "query-side input redirected to stdin.")
         queries = ["-"]
 
+    # intra-host process workers: `-tN` runs the mapping with N local
+    # worker processes through the multi-host round-robin + rank-
+    # ordered-merge machinery, byte-identical output (see _nproc_for
+    # for the count policy). Structural exclusions stay single-process:
+    # stdin (a pipe can be consumed once, but every worker must
+    # re-read the query input by path — the reference shares one
+    # stream under one reader thread, which a process split cannot
+    # do) and AVA (reference-side files double as queries, so the
+    # per-pair index build would replicate per worker); both still
+    # get the in-process `-t` I/O-overlap pipeline.
+    nproc = _nproc_for(o.nth)
+    if nproc > 1 and not (o.flag & MM_AVA) and "-" not in queries \
+            and o.fnw is None:
+        rc = _align_procs(o, log, argv, nproc)
+        log(1, "main", "Command: " + o.arg_line, ts=False)
+        log(1, "main", f"Real time: {time.time() - t0:.3f} sec; "
+            f"CPU: {time.process_time():.3f} sec", ts=False)
+        return rc
+
+    from .device import env_device
+    from .extend import FillEngine
+    from .io.sam import Blast6Writer, MafWriter, PafWriter, SamWriter
     omit = bool(o.flag & MM_OMIT_REP)
     if o.fmt == FMT_SAM:
         wr = SamWriter(sys.stdout, tags=tuple(o.tags), rg_line=o.rg_line,
@@ -759,11 +851,36 @@ def main(argv=None) -> int:
     else:
         wr = PafWriter(sys.stdout, tags=tuple(o.tags))
 
-    engine = FillEngine(mp.score, device=env_device())
+    # multi-device auto-path: with more than one CUDA device visible the
+    # extension batches run data-parallel over a device mesh and the
+    # minimizer table is hash-range-sharded with cross-shard merge
+    # (SURVEY.md section 2.6; the reference's analogue is -t engaging
+    # pt everywhere, minialign.c:4729). MINIALIGN_SHARD=0 forces the
+    # single-device engine; output bytes are identical either way
+    # (tests/test_torch_shard.py). On the CPU the mesh has one entry, so
+    # the CPU stays single-device
+    import os
+    dev = env_device()
+    mesh = None
+    if os.environ.get("MINIALIGN_SHARD", "") != "0":
+        from .parallel import shard
+        devs = shard.make_mesh(device=dev.type)
+        if len(devs) > 1:
+            mesh = devs
+            log(1, "main_align",
+                f"mapping over a {len(mesh)}-device mesh.")
+    if mesh is not None:
+        from .parallel.shard import ShardedFillEngine
+        engine = ShardedFillEngine(mp.score, mesh)
+    else:
+        engine = FillEngine(mp.score, device=dev)
     n_reads = 0
     for mi in _iter_index_blocks(o, o.args[:rt], ip):
         log(9, "main_align", f"loaded/built index for {mi.n_seq} "
             "target sequence(s).")
+        if mesh is not None:
+            from .parallel.shard import ShardedIndex
+            mi = ShardedIndex(mi, mesh)
         # header per index block (mm_print_header inside the block
         # loop, minialign.c:6425)
         wr.header(mi.names, mi.lens)

@@ -5,8 +5,10 @@ a silent fall-back to the CPU."""
 from __future__ import annotations
 
 import os
+from typing import TYPE_CHECKING
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 ENV = "MINIALIGN_TORCH_DEVICE"
 
@@ -14,6 +16,8 @@ ENV = "MINIALIGN_TORCH_DEVICE"
 def resolve_device(name: str | None = "cuda") -> torch.device:
     """`"cuda"` (the default) or `"cpu"` -> torch.device. Raises when
     CUDA is asked for and absent."""
+    import torch
+
     if name is None:
         name = "cuda"
     dev = torch.device(name)
@@ -32,3 +36,9 @@ def resolve_device(name: str | None = "cuda") -> torch.device:
 def env_device() -> torch.device:
     """The CLI's device: $MINIALIGN_TORCH_DEVICE, default cuda."""
     return resolve_device(os.environ.get(ENV, "cuda"))
+
+
+def env_device_type() -> str:
+    """env_device()'s type ("cuda" or "cpu") from the variable alone,
+    without importing torch or checking the device."""
+    return os.environ.get(ENV, "cuda").split(":")[0]

@@ -4,6 +4,7 @@ run, on one CUDA card.
 
     python minialign_tpu_torch/kbench.py [--root DIR] [--batches 128,8]
         [--reps 3] [--e2e [--duo 1,0]] [--probes]
+        [--walls t1,t4,p2,p4 [--wall-reps 2]] [--wall-split 1,2,4]
 
 Gather: chip_smoke.py's phase 2 case (512 windows of 32 kb from a 10 MB
 store) and one launch of E2E_GATHER (one problem a side at about the
@@ -36,6 +37,15 @@ the plain twin; the sums per probe; the probe wrapper's stages
 (time.perf_counter_ns over STAGE_CALLS calls each); the P2 step timer's
 ns/step by slope in every dtype at B in STEP_B and n in STEP_COUNTS; and
 the instruction counts of the probe kernels (cuobjdump -sass).
+
+--walls t1,t4,p2,p4 times the CLI of the --root checkout as a process
+on that workload with -xpacbio -1262144 -v2 (chip_smoke.py's phase 9c
+batches), --wall-reps times each after one untimed run: "tN" is -tN (N
+worker processes here, N threads in a checkout older than the worker
+branch), "pN" is -t1 with MINIALIGN_PROC_WORKERS=N; each with the
+output's digest without @PG and the merge's remaps. --wall-split 1,2,4
+cuts such a run of this checkout into its steps, each in processes of
+its own, one after another (wall_split).
 
 --batches "" leaves the fill and walk out. --root DIR imports
 minialign_tpu_torch from DIR instead of this checkout, so that one call
@@ -247,6 +257,130 @@ def gather_read_bytes(side, L):
     n = np.minimum(side["cap"], L)
     stay = np.maximum(side["seglen"] - np.maximum(side["start"], 0), 0)
     return int(np.where(side["wrap"] > 0, n, np.minimum(n, stay)).sum())
+
+
+# The sharded lookup's (D3) edge tables, shared by the CPU tests (against
+# the JAX package), the card tests and chip_smoke.py: tests/data/tref.fa's
+# index at k = 15 (bucket-major keys, only per-bucket sorted) and k = 19
+# (hashes past 2^32), no key at all (one pad slot a shard), and 13 hashes
+# past 2^63 with UINT64_MAX among them.
+LOOKUP_KINDS = ("tref", "tref_k19", "empty", "high")
+U64MAX = np.iinfo(np.uint64).max
+
+
+def lookup_table(kind, build_index, IndexParams):
+    """(keys, offsets) of a LOOKUP_KINDS table, with the given package's
+    build_index and IndexParams."""
+    if kind in ("tref", "tref_k19"):
+        from minialign_tpu_torch.io import bseq
+        seqs = list(bseq.read_seqs(os.path.join(HERE, "tests", "data",
+                                                "tref.fa")))
+        ip = IndexParams(k=19, w=10) if kind == "tref_k19" else IndexParams()
+        mi = build_index(ip, [x.name for x in seqs], [x.codes for x in seqs])
+        return mi.keys, mi.offsets
+    if kind == "empty":
+        return np.zeros(0, np.uint64), np.zeros(1, np.uint32)
+    rng = np.random.default_rng(3)
+    keys = np.unique(rng.integers(1 << 62, 1 << 63, 12, dtype=np.int64)
+                     .astype(np.uint64) << np.uint64(1))
+    keys = np.concatenate([keys, [U64MAX]]).astype(np.uint64)
+    rng.shuffle(keys)
+    off = np.concatenate([[0], np.cumsum(rng.integers(1, 5, len(keys)))])
+    return keys, off.astype(np.uint32)
+
+
+def lookup_queries(keys, seed=5):
+    """Every key, misses between and around them, 0, the pad value, the
+    sign bit's edges, a hash below the first key and one above the last,
+    shuffled."""
+    k = np.sort(np.asarray(keys, np.uint64))
+    extra = [0, 1, U64MAX, U64MAX - 1, 1 << 63, (1 << 63) - 1]
+    if len(k):
+        extra += [int(k[0]) - 1 if k[0] else 0, min(int(k[-1]) + 1, U64MAX)]
+    q = np.concatenate([k, k[: len(k) // 2] + np.uint64(1),
+                        np.asarray(extra, np.uint64)])
+    return np.random.default_rng(seed).permutation(q)
+
+
+def lookup_tensors(torch, tabs, q, device):
+    """shard_index_arrays' numpy tables and the query hashes as the
+    lookup kernel takes them: int64 tensors (the uint64 bits) on
+    `device`."""
+    def t(x):
+        x = np.ascontiguousarray(x)
+        return torch.from_numpy(x.view(np.int64) if x.dtype == np.uint64
+                                else x.astype(np.int64)).to(device)
+    return [t(x) for x in tabs] + [t(np.asarray(q, np.uint64))]
+
+
+def lookup_bytes(keys_sh, q, found):
+    """Bytes the sharded lookup must move for these inputs: the queries,
+    the distinct keys the searches probe (each read once: the top levels
+    are shared by every query), the start and count of each hit, and the
+    (S, Q) starts and counts written."""
+    S, K = keys_sh.shape
+    q = np.asarray(q, np.uint64)
+    probed = []
+    for s in range(S):
+        lo = np.zeros(len(q), np.int64)
+        n = np.full(len(q), K, np.int64)
+        while (n > 0).any():
+            live = n > 0
+            half = n >> 1
+            mid = np.minimum(lo + half, K - 1)
+            probed.append(s * K + mid[live])
+            less = live & (keys_sh[s, mid] < q)
+            lo = np.where(less, lo + half + 1, lo)
+            n = np.where(less, n - half - 1, np.where(live, half, 0))
+        probed.append(s * K + np.minimum(lo, K - 1))
+    n_keys = len(np.unique(np.concatenate(probed)))
+    return 8 * len(q) + 8 * n_keys + 16 * int(found) + 16 * S * len(q)
+
+
+def lookup_ops(keys_sh, q):
+    """32-bit operations of the searches: ~4 a level (two 32-bit halves
+    of a 64-bit compare, the select, the halving), ceil(log2(K + 1))
+    levels a (shard, query) pair, and 4 for the found test and writes."""
+    S, K = keys_sh.shape
+    return S * len(q) * (4 * int(np.ceil(np.log2(K + 1))) + 4)
+
+
+def write_split_reads(paths, batch, seed=11):
+    """Two read files of ~1 kb slices of tests/data/tref.fa with ~7%
+    edits, either strand: the first holds one batch at -1<batch>
+    (bseq.read_batches closes a batch at `batch` bases) and two reads
+    more, the second three reads. Mapped with -1<batch>, the plan has
+    three batches: a full one, then two short ones."""
+    with open(os.path.join(HERE, "tests", "data", "tref.fa")) as f:
+        ref = "".join(line.strip() for line in f if not line.startswith(">"))
+    rng = np.random.default_rng(seed)
+    comp = str.maketrans("ACGT", "TGCA")
+
+    def read():
+        L = int(rng.integers(900, 1100))
+        st = int(rng.integers(0, len(ref) - L))
+        out = []
+        for c in ref[st:st + L]:
+            r = rng.random()
+            if r < 0.03:
+                out.append("ACGT"[rng.integers(0, 4)])
+            elif r >= 0.05:
+                out.append(c)
+                if r < 0.07:
+                    out.append("ACGT"[rng.integers(0, 4)])
+        s = "".join(out)
+        return s.translate(comp)[::-1] if rng.random() < 0.5 else s
+
+    full = []
+    while sum(map(len, full)) < batch:
+        full.append(read())
+    n = 0
+    for path, reads in zip(paths, (full + [read(), read()],
+                                   [read(), read(), read()])):
+        with open(path, "w") as f:
+            for s in reads:
+                f.write(f"@r{n}\n{s}\n+\n{'I' * len(s)}\n")
+                n += 1
 
 
 def device_ms(torch, fn, reps=3, calls=GATHER_CALLS):
@@ -736,17 +870,11 @@ def h2d(per):
     return sum(n.values()), sum(v for k, v in n.items() if "Pageable" in k)
 
 
-def e2e(torch, pkg, emit, duo="1"):
-    """Maps the E2E workload with MINIALIGN_DUO=duo: a warm-up, three
-    timed maps, then one under torch.profiler that also counts, per
-    FillEngine.run call (in the calling thread: align_batch's scheduler
-    threads share the engine), its fill launches and its requests by
-    kind, and the duo requests whose down failed (score 0: their up
-    windows are empty), and reads the device's peak memory."""
-    from minialign_tpu_torch import _build, cli, extend, native
+def e2e_workload():
+    """bench_e2e.make_workload's 100 x 20 kb reads on a 5 Mb genome
+    (made once, cached under build/e2e): (ref_fa, reads_fq, bases)."""
     os.environ.update(BENCH_E2E_GENOME_MB="5", BENCH_E2E_READS=str(E2E_READS),
-                      BENCH_E2E_READLEN="20000",
-                      MINIALIGN_TORCH_DEVICE="cuda", MINIALIGN_DUO=duo)
+                      BENCH_E2E_READLEN="20000")
     sys.path.insert(0, HERE)
     import bench_e2e
     bench_e2e.CACHE = os.path.join(HERE, "minialign_tpu_torch", "build",
@@ -755,6 +883,131 @@ def e2e(torch, pkg, emit, duo="1"):
     with open(reads_fq) as f:
         nbases = sum(len(line.rstrip()) for i, line in enumerate(f)
                      if i % 4 == 1)
+    return ref_fa, reads_fq, nbases
+
+
+def walls(root, pkg, spec, reps, emit):
+    """The CLI of the checkout at `root` as a process on the E2E
+    workload with -xpacbio -1262144 -v2 (about 12 reads a batch, as
+    chip_smoke.py's phase 9c), wall from spawn to exit, `reps` times
+    after one untimed run that builds the kernels: for each item of
+    `spec`, "tN" runs -tN and "pN" runs -t1 with
+    MINIALIGN_PROC_WORKERS=N. Also the output's digest without @PG and
+    the merge's remaps (its -v2 log line)."""
+    import hashlib
+    ref_fa, reads_fq, nbases = e2e_workload()
+
+    def cli(item):
+        n = item[1:]
+        env = dict(os.environ, MINIALIGN_TORCH_DEVICE="cuda")
+        env.pop("MINIALIGN_PROC_WORKERS", None)
+        if item[0] == "p":
+            env["MINIALIGN_PROC_WORKERS"] = n
+        argv = [f"-t{n if item[0] == 't' else 1}", "-xpacbio", "-1262144",
+                "-v2", ref_fa, reads_fq]
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-m", "minialign_tpu_torch"]
+                           + argv, cwd=root, env=env, capture_output=True,
+                           text=True, timeout=600)
+        wall = time.time() - t0
+        if r.returncode != 0:
+            raise RuntimeError(f"{item}: CLI exited {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+        body = "".join(x for x in r.stdout.splitlines(keepends=True)
+                       if not x.startswith("@PG"))
+        rem = re.findall(r"\((\d+) batch\(es\) remapped", r.stderr)
+        return (wall, hashlib.sha256(body.encode()).hexdigest(),
+                int(rem[-1]) if rem else None)
+
+    cli("t1")
+    for item in spec:
+        got = [cli(item) for _ in range(reps)]
+        emit(kind="walls", pkg=pkg, item=item, bases=nbases,
+             cores=os.cpu_count(), walls_s=[g[0] for g in got],
+             sha256_no_pg=sorted({g[1] for g in got}),
+             remaps=[g[2] for g in got])
+
+
+SPLIT_MERGE = """
+import json, os, sys, time
+t0 = time.time()
+from minialign_tpu_torch.parallel import distributed as d
+t1 = time.time()
+argv, outs = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+setup = d.merge_setup(argv)
+t2 = time.time()
+with open(os.devnull, "w") as f:
+    n = d.merge_host_outputs(argv, outs, f, setup)
+print(json.dumps([t1 - t0, t2 - t1, time.time() - t2, n]))
+"""
+
+
+def wall_split(ns, emit):
+    """The walls of --walls' pN items cut into what a -tN run does, each
+    step in processes of its own on the card, one after another: the
+    parent's start (the interpreter, the CLI's imports, _prebuild); the
+    N hostworker processes started together, with each one's exit time
+    and its mapping wall (its .stats); and the merge in a process of its
+    own (imports, merge_setup, then merge_host_outputs with it)."""
+    ref_fa, reads_fq, _ = e2e_workload()
+    argv = ["-t1", "-xpacbio", "-1262144", "-v2", ref_fa, reads_fq]
+    env = dict(os.environ, MINIALIGN_TORCH_DEVICE="cuda")
+    env.pop("MINIALIGN_PROC_WORKERS", None)
+
+    def py(*args):
+        t0 = time.time()
+        r = subprocess.run([sys.executable] + list(args), cwd=HERE,
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode != 0:
+            raise RuntimeError(f"{args[:2]}: exited {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+        return time.time() - t0, r.stdout
+
+    start, _ = py("-c", "from minialign_tpu_torch import cli; "
+                  "cli._prebuild()")
+    for n in ns:
+        with tempfile.TemporaryDirectory() as td:
+            outs = [os.path.join(td, f"w{h}.out") for h in range(n)]
+            t0 = time.time()
+            procs = [subprocess.Popen(
+                [sys.executable, "-m",
+                 "minialign_tpu_torch.parallel.hostworker", str(h), str(n),
+                 outs[h]] + argv, cwd=HERE, env=env,
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+                for h in range(n)]
+            ends = [None] * n
+            while any(e is None for e in ends):
+                for h, p in enumerate(procs):
+                    if ends[h] is None and p.poll() is not None:
+                        if p.returncode != 0:
+                            raise RuntimeError(f"worker {h} exited "
+                                               f"{p.returncode}")
+                        ends[h] = time.time() - t0
+                time.sleep(0.005)
+            maps = []
+            for o in outs:
+                with open(o + ".stats") as f:
+                    maps.append(json.load(f)["wall_map_s"])
+            wall, out = py("-c", SPLIT_MERGE, json.dumps(argv),
+                           json.dumps(outs))
+            imp, setup, merge, remaps = json.loads(out)
+        emit(kind="wall_split", workers=n, cores=os.cpu_count(),
+             parent_start_s=start, worker_exit_s=ends,
+             worker_map_s=maps, merge_process_s=wall, merge_import_s=imp,
+             merge_setup_s=setup, merge_s=merge, remaps=remaps)
+
+
+def e2e(torch, pkg, emit, duo="1"):
+    """Maps the E2E workload with MINIALIGN_DUO=duo: a warm-up, three
+    timed maps, then one under torch.profiler that also counts, per
+    FillEngine.run call (in the calling thread: align_batch's scheduler
+    threads share the engine), its fill launches and its requests by
+    kind, and the duo requests whose down failed (score 0: their up
+    windows are empty), and reads the device's peak memory."""
+    from minialign_tpu_torch import _build, cli, extend, native
+    os.environ.update(MINIALIGN_TORCH_DEVICE="cuda", MINIALIGN_DUO=duo)
+    ref_fa, reads_fq, nbases = e2e_workload()
 
     def run():
         out = io.StringIO()
@@ -825,6 +1078,13 @@ def main(argv=None):
     ap.add_argument("--duo", default="1,0",
                     help="MINIALIGN_DUO settings of the --e2e maps, in order")
     ap.add_argument("--probes", action="store_true")
+    ap.add_argument("--walls", default="",
+                    help="CLI walls on the E2E workload: comma-separated "
+                    "tN (-tN) and pN (MINIALIGN_PROC_WORKERS=N) items")
+    ap.add_argument("--wall-reps", type=int, default=2)
+    ap.add_argument("--wall-split", default="",
+                    help="worker counts N whose -tN run is timed step by "
+                    "step (this checkout only)")
     o = ap.parse_args(argv)
     root = os.path.abspath(o.root)
     sys.path.insert(0, root)
@@ -838,6 +1098,10 @@ def main(argv=None):
     def emit(**kw):
         print(json.dumps(dict(kw, card=name)), flush=True)
 
+    if o.walls:
+        walls(root, pkg, o.walls.split(","), o.wall_reps, emit)
+    if o.wall_split:
+        wall_split([int(x) for x in o.wall_split.split(",")], emit)
     gather_bench(torch, pkg, E2E_GATHER, emit)
     batches = [int(x) for x in o.batches.split(",") if x]
     if batches:

@@ -43,20 +43,31 @@ def run_golden(name, monkeypatch, tmp_path, duo="1"):
     """chip_smoke.GOLDENS's case `name` through the port's CLI on the
     CPU with MINIALIGN_DUO=duo, compared with its golden as
     tests/test_golden_sam.py compares it; the engine's duo batches
-    counted (some, duo on and a linear reference; none, duo off).
-    Returns the output."""
+    counted (some, duo on and a linear reference; none, duo off). A -tN
+    case maps in min(N, cores) worker processes (one torch thread each),
+    which are counted instead: their duo batches are theirs. Returns the
+    output."""
     import chip_smoke
+    from minialign_tpu_torch import cli
     from minialign_tpu_torch.extend import FillEngine
     _, args, golden, mode, _, pre = {g[0]: g for g in chip_smoke.GOLDENS}[
         name]
     monkeypatch.setenv("MINIALIGN_DUO", duo)
-    batches = []
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.delenv("MINIALIGN_PROC_WORKERS", raising=False)
+    batches, procs = [], []
     duo_batch = FillEngine._duo_batch
+    align_procs = cli._align_procs
 
     def counted(self, reqs, W):
         batches.append(len(reqs))
         return duo_batch(self, reqs, W)
+
+    def counted_procs(o, log, argv, nproc):
+        procs.append(nproc)
+        return align_procs(o, log, argv, nproc)
     monkeypatch.setattr(FillEngine, "_duo_batch", counted)
+    monkeypatch.setattr(cli, "_align_procs", counted_procs)
     if pre:
         _run_cli(chip_smoke.golden_args(pre, DATA, str(tmp_path)),
                  monkeypatch)
@@ -66,7 +77,10 @@ def run_golden(name, monkeypatch, tmp_path, duo="1"):
         want = f.read()
     assert chip_smoke.golden_view(got, mode) == \
         chip_smoke.golden_view(want, mode)
-    if duo != "1":
+    nth = int(next((a[2:] for a in args if a.startswith("-t")), "1"))
+    nproc = min(nth, os.cpu_count() or 1)
+    assert procs == ([nproc] if nproc > 1 else [])
+    if duo != "1" or procs:
         assert not batches
     elif not any(a.startswith("-c") for a in args):
         assert batches

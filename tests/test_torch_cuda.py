@@ -210,12 +210,16 @@ def test_cli_golden_on_cuda(name, dev, monkeypatch, tmp_path):
     """Every golden through the port's CLI on the card with the duo on
     (the default), compared as tests/test_golden_sam.py compares it:
     the fill, gather and walk launched, one gather a fill, the duo
-    kernel on a linear reference."""
+    kernel on a linear reference. A -tN case's worker processes log
+    their launches (MINIALIGN_LAUNCH_LOG), which count too."""
     from minialign_tpu_torch import cli
     _, args, golden, mode, _, pre = {g[0]: g for g in chip_smoke.GOLDENS}[
         name]
     monkeypatch.setenv("MINIALIGN_TORCH_DEVICE", "cuda")
     monkeypatch.delenv("MINIALIGN_DUO", raising=False)
+    monkeypatch.delenv("MINIALIGN_PROC_WORKERS", raising=False)
+    logs = tmp_path / "launches"
+    logs.mkdir()
 
     def run(a):
         out = io.StringIO()
@@ -225,8 +229,10 @@ def test_cli_golden_on_cuda(name, dev, monkeypatch, tmp_path):
     if pre:
         run(pre)
     _build.reset_counts()
+    monkeypatch.setenv("MINIALIGN_LAUNCH_LOG", str(logs))
     got = run(args)
-    n = dict(_build.LAUNCHES)
+    workers = _build.worker_launches(str(logs))
+    n = {k: v + workers[k] for k, v in _build.LAUNCHES.items()}
     assert all(n[k] > 0 for k in ("fill", "gather", "dtrace")), n
     assert n["gather"] == n["fill"]
     if not any(a.startswith("-c") for a in args):
@@ -436,3 +442,110 @@ def test_probe_wrapper_takes_string_device_and_other_inputs(dev):
     _build.reset_counts()
     _same(subint32.probe("add", x, y, "cuda"), want)
     assert _build.LAUNCHES["p1"] == 1
+
+
+# ---- D3: the sharded lookup; the parallel paths on the card
+
+
+@pytest.mark.parametrize("n", [1, 2, 8])
+@pytest.mark.parametrize("kind", kbench.LOOKUP_KINDS)
+def test_lookup_kernel_matches_plain(kind, n, dev):
+    """kbench.LOOKUP_KINDS's tables split n ways: hashes past 2^63, the
+    pad value, misses below and above, K = 0, unequal fill; one launch,
+    word for word."""
+    from minialign_tpu_torch.index.build import build_index
+    from minialign_tpu_torch.params import IndexParams
+    from minialign_tpu_torch.parallel import cuda_lookup, shard
+    keys, off = kbench.lookup_table(kind, build_index, IndexParams)
+    t = kbench.lookup_tensors(torch, shard.shard_index_arrays(keys, off, n),
+                              kbench.lookup_queries(keys), dev)
+    _build.reset_counts()
+    got = cuda_lookup.lookup(*t)
+    assert _build.LAUNCHES["lookup"] == 1
+    want = cuda_lookup.lookup_plain(*t)
+    assert all(map(torch.equal, got, want))
+    empty = cuda_lookup.lookup(*t[:3], t[3][:0])
+    assert [x.shape for x in empty] == [(n, 0)] * 2
+    assert _build.LAUNCHES["lookup"] == 1
+
+
+def _tref_reads(n, seed):
+    from minialign_tpu_torch.io import bseq
+    g = next(bseq.read_seqs(f"{DATA}/tref.fa")).codes
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        st = int(rng.integers(0, len(g) - 3000))
+        s = g[st:st + int(rng.integers(800, 3000))].copy()
+        r = rng.random(len(s))
+        s = np.where(r < 0.05, rng.integers(0, 4, len(s)), s).astype(np.int8)
+        out.append((3 - s)[::-1].copy() if rng.random() < 0.5 else s)
+    return out
+
+
+def test_sharded_engine_on_one_card_matches_single(dev):
+    """ShardedFillEngine over [cuda:0, cuda:0] (two inner engines, two
+    streams) returns one FillEngine's results, downs and traced ups."""
+    from minialign_tpu_torch.extend import FillEngine
+    from minialign_tpu_torch.parallel import shard
+    rng = np.random.default_rng(7)
+    reqs = []
+    for i, a in enumerate(_tref_reads(9, 3)):
+        b = kbench.mutate(rng, a).astype(np.int8)
+        reqs.append(("up" if i % 2 else "down", a, b, (16, 32, 64)[i % 3]))
+    p = MapParams().score
+    _build.reset_counts()
+    got = shard.ShardedFillEngine(p, [dev, dev]).run(reqs)
+    assert _build.LAUNCHES["fill"] >= 2
+    assert got == FillEngine(p, device=dev).run(reqs)
+
+
+def test_align_batch_sharded_on_one_card(dev, monkeypatch):
+    """align_batch_sharded over [cuda:0, cuda:0] with the native seeding
+    off (so seeding goes through the lookup kernel) gives one engine's
+    records."""
+    from minialign_tpu_torch import native
+    from minialign_tpu_torch.extend import FillEngine
+    from minialign_tpu_torch.index.build import build_index
+    from minialign_tpu_torch.io import bseq
+    from minialign_tpu_torch.params import IndexParams
+    from minialign_tpu_torch.parallel import shard
+    from minialign_tpu_torch.pipeline import align_batch
+    ref = list(bseq.read_seqs(f"{DATA}/tref.fa"))
+    mi = build_index(IndexParams(), [s.name for s in ref],
+                     [s.codes for s in ref])
+    mp = MapParams()
+    reads = _tref_reads(12, 5)
+    want = align_batch(mp, mi, reads, FillEngine(mp.score, device=dev))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", True)
+    _build.reset_counts()
+    got = shard.align_batch_sharded(mp, mi, reads, [dev, dev])
+    assert all(_build.LAUNCHES[k] > 0
+               for k in ("lookup", "fill", "gather", "dtrace"))
+    assert got == want
+
+
+def test_cli_workers_on_cuda(dev, tmp_path):
+    """The CLI with MINIALIGN_PROC_WORKERS=2 on the card (three batches
+    of kbench.write_split_reads at -165537) gives the one-process output
+    byte for byte, @PG included; both processes launch the kernels."""
+    import subprocess
+    reads = [str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq")]
+    kbench.write_split_reads(reads, 65537)
+    args = ["-t1", "-165537", f"{DATA}/tref.fa"] + reads
+    outs, launches = [], []
+    for n in ("1", "2"):
+        logs = tmp_path / f"logs{n}"
+        logs.mkdir()
+        env = dict(os.environ, MINIALIGN_TORCH_DEVICE="cuda",
+                   MINIALIGN_PROC_WORKERS=n, MINIALIGN_LAUNCH_LOG=str(logs))
+        r = subprocess.run([sys.executable, "-m", "minialign_tpu_torch"]
+                           + args, cwd=chip_smoke.ROOT, env=env,
+                           capture_output=True, timeout=600)
+        assert r.returncode == 0, r.stderr.decode()[-2000:]
+        outs.append(r.stdout)
+        launches.append(len(os.listdir(logs)))
+        assert _build.worker_launches(str(logs))["fill"] > 0
+    assert outs[0] == outs[1]
+    assert launches == [1, 3]            # the parent and its two workers

@@ -351,3 +351,132 @@ def test_cli_run_leaves_no_jax_or_minialign_tpu_module():
                 if not line.startswith("@PG")]
     assert [line for line in r.stdout.splitlines()
             if not line.startswith("@PG")] == want
+
+
+# ---- cli.py and parallel/ against their originals
+
+
+class _Normal(ast.NodeTransformer):
+    """What the port may change in a copy, taken out of both trees:
+    docstrings and imports; the port's `FillEngine(...,
+    device=env_device())` becomes the JAX `FillEngine(...)`, its worker
+    module's name the JAX one's, and its `_prebuild()` call goes; the
+    thread that builds the merge's setup while the workers map
+    (`with ThreadPoolExecutor(1) as pool:`) gives way to its body without
+    the submit, and the merge no longer takes `setup.result()`."""
+
+    def visit_With(self, node):
+        self.generic_visit(node)
+        if "ThreadPoolExecutor" not in ast.unparse(node.items[0]):
+            return node
+        return [n for n in node.body
+                if "pool.submit" not in ast.unparse(n)]
+
+    def visit_Import(self, node):
+        return None
+
+    visit_ImportFrom = visit_Import
+
+    def visit_Expr(self, node):
+        v = node.value
+        if isinstance(v, ast.Constant) and isinstance(v.value, str):
+            return None
+        if isinstance(v, ast.Call) and getattr(v.func, "id", "") == \
+                "_prebuild":
+            return None
+        return self.generic_visit(node)
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        if ast.unparse(node.func) == "distributed.merge_host_outputs":
+            node.args = [a for a in node.args
+                         if ast.unparse(a) != "setup.result()"]
+        if getattr(node.func, "id", "") == "FillEngine":
+            node.keywords = [k for k in node.keywords if not (
+                k.arg == "device" and ast.unparse(k.value) == "env_device()")]
+        return node
+
+    def visit_Constant(self, node):
+        if node.value == "minialign_tpu_torch.parallel.hostworker":
+            return ast.copy_location(
+                ast.Constant("minialign_tpu.parallel.hostworker"), node)
+        return node
+
+
+def _defs(path):
+    """The top-level statements of `path`, normalized (_Normal), by name
+    where they define one; the JAX hostworker's platform setup (an `if`
+    on JAX_PLATFORMS) dropped."""
+    with open(os.path.join(ROOT, path)) as f:
+        tree = _Normal().visit(ast.parse(f.read(), path))
+    out = {}
+    for n in tree.body:
+        if isinstance(n, ast.If) and "JAX_PLATFORMS" in ast.unparse(n.test):
+            continue
+        name = getattr(n, "name", None) or (
+            n.targets[0].id if isinstance(n, ast.Assign) and
+            isinstance(n.targets[0], ast.Name)
+            else ast.unparse(n).splitlines()[0])
+        out[name] = n
+    return out
+
+
+@pytest.mark.parametrize("name", ["distributed", "hostworker"])
+def test_parallel_copy_matches_original(name):
+    """parallel/distributed.py and hostworker.py differ from the JAX
+    package's only in imports, docstrings, `initialize` (the gloo process
+    group), the engines' device, the dropped JAX platform setup, and
+    merge_setup with the `setup` merge_host_outputs takes from it."""
+    want = _defs(f"minialign_tpu/parallel/{name}.py")
+    got = _defs(f"minialign_tpu_torch/parallel/{name}.py")
+    extra = {"merge_setup"} if name == "distributed" else set()
+    assert got.keys() - want.keys() == extra
+    assert want.keys() <= got.keys()
+    for k in want:
+        if k not in ("initialize", "merge_host_outputs"):
+            assert ast.dump(got[k]) == ast.dump(want[k]), k
+    if name == "distributed":
+        src = ast.unparse(got["initialize"])
+        assert "init_process_group('gloo', init_method='tcp://' + " \
+            "coordinator, world_size=n_hosts, rank=host_id)" in src
+        # the merge: the JAX body less its own _align_setup and its
+        # `engine = None`, after the port's two lines that take `setup`
+        g, w = got["merge_host_outputs"], want["merge_host_outputs"]
+        assert [ast.unparse(n) for n in g.body[:2]] == [
+            "if setup is None:\n    setup = (_align_setup(argv), None)",
+            "(o, mp, blocks, queries, make_writer, _log), engine = setup"]
+        assert ast.unparse(w.body[0]) == ("o, mp, blocks, queries, "
+                                          "make_writer, _log = "
+                                          "_align_setup(argv)")
+        assert [ast.dump(n) for n in g.body[2:]] == [
+            ast.dump(n) for n in w.body[1:]
+            if ast.unparse(n) != "engine = None"]
+        setup = ast.unparse(got["merge_setup"])
+        assert "setup = _align_setup(argv)" in setup
+        # (_Normal took its `device=env_device()` out)
+        assert "engine = FillEngine(setup[1].score)\n" in setup
+
+
+def test_cli_copy_matches_original_with_worker_and_mesh_branches():
+    """cli.py's definitions equal the JAX package's, _nproc_for and
+    _align_procs (the worker processes) included, apart from main; main
+    holds the JAX worker branch statement for statement, and the mesh
+    branch builds the sharded engine and index from the CUDA devices."""
+    want = _defs("minialign_tpu/cli.py")
+    got = _defs("minialign_tpu_torch/cli.py")
+    assert set(got) - set(want) == {"_prebuild"}
+    for k in want:
+        if k != "main":
+            assert ast.dump(got[k]) == ast.dump(want[k]), k
+
+    def worker_branch(defs):
+        return [ast.dump(n) for n in ast.walk(defs["main"])
+                if isinstance(n, ast.If)
+                and "nproc > 1" in ast.unparse(n.test)]
+    assert len(worker_branch(got)) == 1
+    assert worker_branch(got) == worker_branch(want)
+    main = ast.unparse(got["main"])
+    for part in ("shard.make_mesh(device=dev.type)", "'MINIALIGN_SHARD'",
+                 "ShardedFillEngine(mp.score, mesh)",
+                 "ShardedIndex(mi, mesh)", "FillEngine(mp.score, device=dev)"):
+        assert part in main, part
