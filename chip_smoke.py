@@ -17,9 +17,12 @@ Phases, in order; any failure exits non-zero before the result line:
      B=128 x 20 kb), with times, ns/step and the bound
   4  K3 traceback kernel == dtrace_plain on phase 3's trace buffers,
      with ns/move at 20 kb
-  4b D1 duo window kernel == duo_window_plain, word for word, on
-     kbench.duo_geometry's edge cases at B 1/48/512, the geometry read
-     from behind a down descriptor block as the engine uploads it
+  4b D1, the duo window in the untraced fill's epilogue: at B 1/48/512
+     on kbench.duo_fill_case (failed downs, duo_geometry's edge
+     geometry, reads and references past 262 kb), the geometry read
+     from behind a down descriptor block as the engine uploads it, the
+     fill's results == fill_plain's and the up descriptor block and down
+     rows == duo_window_plain's on them, word for word
   5  every golden of tests/data through the port's CLI on CUDA with the
      duo on (GOLDENS, compared as tests/test_golden_sam.py compares
      them): fill, gather and walk launched, the duo on a linear reference
@@ -27,13 +30,17 @@ Phases, in order; any failure exits non-zero before the result line:
      reads mapped with -t1 -xpacbio, with MINIALIGN_DUO=1 (the default)
      and then 0 (the two-step path); each SAM (without @PG) must hash to
      the JAX package's digest below; the duo launched in the first run
-     and not in the second; the port's host library loaded; the problems
-     of each traced fill launch. Then phases 3-4 again at the median of
+     and not in the second; with the engine's batches counted, five
+     launches a duo batch (two gathers, two fills, one of them counted
+     as the duo, a walk) and a gather and a fill a batch of downs or
+     ups, exactly; the port's
+     host library loaded; the problems of each traced fill launch. Then phases 3-4 again at the median of
      those launch sizes (20 kb): the kernels timed, their results held
      to phase 3's plain ones for the same problems. The gather launches
      once a fill launch; a profiled rerun counts the host-to-device
      copies (pageable and pinned); phase 2's timing again at the run's
-     median gather launch, phase 4b's at its median duo launch
+     median gather launch, phase 4b's at its median duo launch (the
+     fused fill timed with the epilogue and without it)
   7  the step-mix probes P1-P4 through their entry point
      (minialign_tpu_torch.probes.run, i.e. python -m
      minialign_tpu_torch.probes): every case of the four JAX tools, each
@@ -44,13 +51,19 @@ Phases, in order; any failure exits non-zero before the result line:
      ends, an odd size, misaligned views), and the step timer at B=128
      and 1024, int16 also from inputs whose adds wrap
   9  the parallel paths (minialign_tpu_torch.parallel): (a) the D3
-     lookup kernel == lookup_plain word for word on kbench.LOOKUP_KINDS
-     at 1, 2 and 8 shards, then timed (device time, the wrapper's time,
-     the plain version, torch.searchsorted on the same table) for the
-     median E2E read's hashes against the E2E index split 2 ways (the
-     main path's shape: seeding looks up a read a call; the kernels line
-     reports it), for every E2E read's hashes in one launch and for 10^5
-     queries against 10^7 keys split 2 ways; (b) ShardedIndex.lookup ==
+     lookup kernel (the search tree, cuda_lookup.build_tree) == the sum
+     of lookup_plain's rows on the tables themselves, word for word, on
+     kbench.lookup_cases (the LOOKUP_KINDS tables and the LOOKUP_EDGE_K
+     shard sizes) at 1, 2 and 8 shards, the levels read as the wrapper
+     picks, whole and by sectors; then timed (device time, the wrapper's time,
+     the plain version, torch.searchsorted on the same table) at
+     kbench.lookup_shapes: the median E2E read's hashes against the E2E
+     index split 2 ways (the main path's shape: seeding looks up a read
+     a call; the kernels line reports it, with the sharded path's host
+     time a call), every E2E read's hashes in one launch and 10^5
+     queries against 10^7 keys split 2 ways; the levels in shared
+     memory, whole lines or sectors, the tree's bytes and the peak device
+     memory of placing it; (b) ShardedIndex.lookup ==
      MMIndex.lookup on those hashes, and align_batch_sharded over
      [cuda:0, cuda:0] with the native seeding off == align_batch on one
      engine, record for record (the lookup's launches counted there);
@@ -179,7 +192,7 @@ KERNELS = {
                "minialign_tpu/dp/pallas_gather.py:83"),
     "dtrace": ("minialign_tpu_torch/csrc/dtrace.cu",
                "minialign_tpu/dp/dtrace.py:66"),
-    "duo": ("minialign_tpu_torch/csrc/duo.cu",
+    "duo": ("minialign_tpu_torch/csrc/fill.cu",
             "minialign_tpu/extend.py:675"),
     "lookup": ("minialign_tpu_torch/csrc/lookup.cu",
                "minialign_tpu/parallel/shard.py:95"),
@@ -273,10 +286,11 @@ def sam_digest(text):
     return hashlib.sha256(body.encode()).hexdigest(), body
 
 
-# bytes the duo window moves a problem: the down score, i and j and the
-# geometry (two int64, four int32) read, the up descriptor's two rows
-# (seven words each) and the down rows written
-DUO_BYTES = 12 + 32 + 56 + 12
+# bytes the duo window adds to its fill a problem: the geometry (two
+# int64, four int32) read, the up descriptor's two rows (seven words
+# each) and the down rows written (the down score, i and j are the
+# fill's registers)
+DUO_BYTES = 32 + 56 + 12
 DUO_OPS = 20
 
 
@@ -339,33 +353,36 @@ def phase9(np, torch, card, stats, ref_fa, reads_fq):
     from minialign_tpu_torch import _build, cli, kbench, native
     from minialign_tpu_torch.extend import FillEngine
     from minialign_tpu_torch.index.build import build_index
-    from minialign_tpu_torch.index.sketch import sketch
     from minialign_tpu_torch.io import bseq
     from minialign_tpu_torch.params import IndexParams
     from minialign_tpu_torch.parallel import cuda_lookup, distributed, shard
     from minialign_tpu_torch.pipeline import align_batch
     dev = torch.device("cuda", 0)
-    lib = _build.library()
     timed = kbench.timed
 
-    # (a) the kernel against its plain version on the edge tables
+    # (a) the kernel against its plain version on the edge tables (the
+    # plain version on the tables themselves, not on the tree built from
+    # them), the levels read as the wrapper picks, whole and by sectors
     t0 = time.time()
-    err, n_cases = 0, 0
-    for kind in kbench.LOOKUP_KINDS:
-        keys, off = kbench.lookup_table(kind, build_index, IndexParams)
-        q = kbench.lookup_queries(keys)
-        for n in (1, 2, 8):
-            t = kbench.lookup_tensors(
-                torch, shard.shard_index_arrays(keys, off, n), q, dev)
-            got, want = cuda_lookup.lookup(*t), cuda_lookup.lookup_plain(*t)
-            err = max([err] + [int((g - w).abs().max()) if g.numel() else 0
-                               for g, w in zip(got, want)])
-            if not all(map(torch.equal, got, want)):
-                fail(f"lookup kernel != lookup_plain: {kind}, {n} shards")
-            n_cases += 1
+    err, n_cases, n_runs = 0, 0, 0
+    for name, n, tabs, q in kbench.lookup_cases(build_index, IndexParams):
+        *t, qt = kbench.lookup_tensors(torch, tabs, q, dev)
+        want = cuda_lookup.lookup_sum_plain(*t, qt)
+        tree = cuda_lookup.build_tree(*t)
+        for split in (None, False, True):
+            got = cuda_lookup.lookup(tree, qt, split)
+            if got.numel():
+                err = max(err, int((got - want).abs().max()))
+            if not torch.equal(got, want):
+                fail(f"lookup kernel != lookup_plain: {name}, {n} shards, "
+                     f"split {split}")
+            n_runs += 1
+        n_cases += 1
     say(f"[9a] lookup equal to plain, word for word, on {n_cases} cases "
-        f"({', '.join(kbench.LOOKUP_KINDS)} at 1/2/8 shards; "
-        f"{time.time() - t0:.1f} s)")
+        f"({', '.join(kbench.LOOKUP_KINDS)}, K "
+        f"{'/'.join(map(str, kbench.LOOKUP_EDGE_K))} a shard; at 1/2/8 "
+        f"shards), {n_runs} launches: the wrapper's choice, whole lines "
+        f"and sectors ({time.time() - t0:.1f} s)")
 
     o = cli.Opts()
     cli.parse_argv(o, ["-xpacbio"])
@@ -374,65 +391,54 @@ def phase9(np, torch, card, stats, ref_fa, reads_fq):
     ref = list(bseq.read_seqs(ref_fa))
     mi = build_index(ip, [x.name for x in ref], [x.codes for x in ref])
     reads = [x.codes for x in bseq.read_seqs(reads_fq)]
-    # seeding looks up one read's hashes a call (chain.collect_seeds):
-    # the median read's is the main path's shape
-    per_read = sorted((sketch(np.asarray(c, np.int64) & 3, mi.k, mi.w)[0]
-                       for c in reads), key=len)
-    q_read = np.asarray(per_read[len(per_read) // 2], np.uint64)
-    q_e2e = np.concatenate(per_read).astype(np.uint64)
-    rng = np.random.default_rng(9)
-    big_keys = np.unique(rng.integers(0, U64_END, 10_200_000,
-                                      dtype=np.uint64))[:10_000_000]
-    rng.shuffle(big_keys)
-    big_off = np.concatenate([[0], np.cumsum(rng.integers(
-        1, 5, len(big_keys)))]).astype(np.uint32)
-    big_q = np.concatenate([rng.choice(big_keys, 50_000),
-                            rng.integers(0, U64_END, 50_000,
-                                         dtype=np.uint64)])
     res = {}
-    for name, keys, off, q in (("read", mi.keys, mi.offsets, q_read),
-                               ("e2e", mi.keys, mi.offsets, q_e2e),
-                               ("big", big_keys, big_off, big_q)):
+    shapes = kbench.lookup_shapes(mi, reads)
+    for name, keys, off, q in shapes:
         tabs = shard.shard_index_arrays(keys, off, 2)
-        kt, st_, ct, qt = kbench.lookup_tensors(torch, tabs, q, dev)
-        S, K = kt.shape
-        Q = len(q)
-        so = torch.empty((S, Q), dtype=torch.int64, device=dev)
-        co = torch.empty_like(so)
-        stream = _build.stream_of(kt)
-        ptrs = (kt.data_ptr(), st_.data_ptr(), ct.data_ptr(), S, K,
-                qt.data_ptr(), Q, so.data_ptr(), co.data_ptr(), stream)
-        ms = kbench.device_ms(torch, lambda: lib.lookup_launch(*ptrs),
-                              calls=20)
-        run = lambda: cuda_lookup.lookup(kt, st_, ct, qt)  # noqa: E731
-        got = run()
-        _, wms = timed(torch, run, 3, 20)
-        want, pms = timed(torch, lambda: cuda_lookup.lookup_plain(
-            kt, st_, ct, qt), 3)
-        if not all(map(torch.equal, got, want)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tables = shard.place_shards([dev, dev], *tabs)
+        peak = torch.cuda.max_memory_allocated() - base
+        del tables
+        r, got, t = kbench.lookup_timing(torch, tabs, q, dev)
+        want, pms = timed(torch, lambda: cuda_lookup.lookup_sum_plain(
+            *t), 3)
+        if not torch.equal(got, want):
             fail(f"lookup kernel != lookup_plain at the {name} size")
-        kf = kt ^ cuda_lookup.SIGN
-        qf = (qt ^ cuda_lookup.SIGN)[None, :].expand(S, -1).contiguous()
-        lms = kbench.device_ms(torch, lambda: torch.searchsorted(kf, qf),
-                               calls=20)
+        if name == "read":
+            r["path_ms"] = kbench.lookup_path_ms(torch, tabs, q, dev)
         found = int((got[1] > 0).sum())
         nb = kbench.lookup_bytes(tabs[0], q, found)
         bd = bound(nb, kbench.lookup_ops(tabs[0], q))
-        res[name] = dict(ms=ms, wrapper_ms=wms, plain_ms=pms,
-                         library_ms=lms, bound_bytes=nb, **bd)
-        say(f"[9a] lookup {name}: {Q} queries against {len(keys)} keys in "
-            f"2 shards of {K} ({found} hits): equal to plain; kernel "
-            f"{ms:.5f} ms device time, wrapper {wms:.5f} ms a call, "
-            f"torch.searchsorted {lms:.5f} ms device time, plain "
-            f"{pms:.3f} ms; {show(bd)}, {nb} bytes on {card}")
-        del kt, st_, ct, qt, so, co, kf, qf, got, want
+        S, K = tabs[0].shape
+        res[name] = dict(r, plain_ms=pms, bound_bytes=nb, place_peak=peak,
+                         **bd)
+        say(f"[9a] lookup {name}: {len(q)} queries against {len(keys)} keys "
+            f"in 2 shards of {K} ({found} hits): equal to plain; kernel "
+            f"{r['ms']:.5f} ms device time, wrapper {r['wrapper_ms']:.5f} ms "
+            f"a call"
+            + (f", the sharded path (numpy in, read back) "
+               f"{r['path_ms']['path']:.5f} ms a call (upload "
+               f"{r['path_ms']['upload']:.5f}, with the launch "
+               f"{r['path_ms']['launch']:.5f})" if name == "read" else "")
+            + f", torch.searchsorted {r['library_ms']:.5f} ms device time, "
+            f"plain {pms:.3f} ms; {show(bd)}, {nb} bytes; tree levels "
+            f"{r['tree_levels']}, top {r['levels']} in shared memory "
+            f"({r['smem_bytes']} B a block), levels read "
+            f"{'by sectors, one thread' if r['split'] else 'whole, 4 lanes'}"
+            f" a query, "
+            f"tree {r['tree_bytes']} B (keys, starts and counts "
+            f"{3 * 8 * S * K} B), placing it peaks at {peak} B on {card}")
+        del t, got, want
     stats["lookup"].update(max_abs_err=err, **res["read"], e2e=res["e2e"],
                            big=res["big"])
-    del big_keys, big_off, big_q
 
     # (b) the sharded index and pipeline over [cuda:0, cuda:0]
     mesh = [dev, dev]
     t0 = time.time()
+    q_e2e = shapes[1][3]
+    del shapes
     smi = shard.ShardedIndex(mi, mesh)
     if not all(np.array_equal(g, w) for g, w in
                zip(smi.lookup(q_e2e), mi.lookup(q_e2e))):
@@ -740,40 +746,57 @@ def main():
         f" plain {wpms:.1f} ms; {show(stats['dtrace'])} on {card}")
     del got, rk, sk, args
 
-    # ---- 4b: D1 duo window
+    # ---- 4b: D1, the duo window in the down fill's epilogue
     t0 = time.time()
     err["duo"] = 0
 
     def duo_case(B, seed):
-        """(kernel call, plain call, summary buffer, down rows, block,
-        words before the geometry) on duo_geometry(seed, B), the
-        geometry behind a down descriptor block as the engine uploads
-        it, the kernel writing the down rows into the summary's last
-        three rows."""
-        c = kbench.duo_geometry(seed, B)
+        """(fused call, plain call, summary buffer, the fill's args and
+        blocks) on kbench.duo_fill_case(seed, B): the geometry behind a
+        down descriptor block as the engine uploads it, the epilogue
+        writing the down rows into the summary's last three rows."""
+        ab, alen, bb, blen, c = kbench.duo_fill_case(band, seed, B)
         g = duo.pack_geom(c["rvbase"], c["qub"], c["rlen"], c["qlen"],
                           c["cp0"], c["cp1"])
         nd = cuda_gather.WORDS * 2 * B
         blk = torch.from_numpy(np.concatenate(
             [np.full(nd, -3, np.int32), g])).to(dev)
-        t = [torch.as_tensor(c[k], dtype=torch.int32, device=dev)
-             for k in ("score", "mi", "mj")]
+        args = on_dev((ab, alen, bb, blen))
+        nb = band.max_blocks_for(alen, blen)
         summ = torch.full((17, B), -1, dtype=torch.int32, device=dev)
-        return (lambda: duo.duo_window(*t, blk[nd:], out=summ[14:]),
-                lambda: duo.duo_window_plain(*t, blk[nd:]), summ, t, blk, nd)
+        pa = pr["affine"]
+
+        def plain():
+            res = band.fill_plain(pa, 64, nb, False, *args)
+            return res, window(res)
+
+        def window(res):
+            return duo.duo_window_plain(res.max_score, res.max_i,
+                                        res.max_j, blk[nd:])
+        return (lambda: cuda_fill.fill_cuda(pa, 64, nb, False, *args,
+                                            duo=(blk[nd:], summ[14:])),
+                plain, summ, args, nb, window)
+
+    def same_duo(B, got, want, summ):
+        (res, desc), (wres, (wdesc, dsum)) = got, want
+        same_fill(64, False, res, wres)
+        err["duo"] = max(err["duo"], int((desc - wdesc).abs().max()),
+                         int((summ[14:] - dsum).abs().max()))
+        if not (torch.equal(desc, wdesc) and torch.equal(summ[14:], dsum)
+                and bool((summ[:14] == -1).all())):
+            fail(f"duo epilogue != duo_window_plain at B={B}")
 
     for B in (1, 48, 512):
         run_k, run_p, summ, *_ = duo_case(B, B)
-        desc, _ = run_k()
-        want, dsum = run_p()
-        err["duo"] = max(err["duo"], int((desc - want).abs().max()),
-                         int((summ[14:] - dsum).abs().max()))
-        if not (torch.equal(desc, want) and torch.equal(summ[14:], dsum)
-                and bool((summ[:14] == -1).all())):
-            fail(f"duo window kernel != duo_window_plain at B={B}")
-    say(f"[4b] duo window equal to plain at B 1/48/512 (failed downs, "
-        f"clipped tp, both caps, cp at 0, bases past 2^31; "
-        f"{time.time() - t0:.0f} s)")
+        _build.reset_counts()
+        got = run_k()
+        if _build.LAUNCHES["duo"] != 1 or _build.LAUNCHES["fill"] != 1:
+            fail(f"duo epilogue at B={B}: launches {_build.LAUNCHES}")
+        same_duo(B, got, run_p(), summ)
+    say(f"[4b] duo window in the fill's epilogue equal to plain at B "
+        f"1/48/512, and the fill's own results (failed downs, clipped tp, "
+        f"both caps, cp at 0, bases past 2^31, reads past 262 kb; one fill "
+        f"launch each, counted as one duo launch; {time.time() - t0:.0f} s)")
 
     # ---- 5: every golden through the CLI on CUDA, duo on
     os.environ["MINIALIGN_TORCH_DEVICE"] = "cuda"
@@ -822,14 +845,33 @@ def main():
                      if i % 4 == 1)
     say(f"[6] workload: {E2E_READS} reads, {nbases} bases, 5 Mb genome "
         f"({time.time() - t0:.1f} s to write)")
+    # the engine's batches, counted around its two batch builders: a duo
+    # batch is five launches (gather, fill with the duo epilogue, gather,
+    # traced fill, walk), a batch of downs or ups a gather and a fill
+    # (and a walk for ups)
+    from minialign_tpu_torch.extend import FillEngine
+    made = {"duo": [], "plain": []}
+
+    def counted(fn, key):
+        def wrap(self, *a, **k):
+            made[key].append(1)
+            return fn(self, *a, **k)
+        return wrap
+
+    builders = FillEngine._duo_batch, FillEngine._batch
+    FillEngine._duo_batch = counted(builders[0], "duo")
+    FillEngine._batch = counted(builders[1], "plain")
     for env in ("1", "0"):
         os.environ["MINIALIGN_DUO"] = env
         _build.reset_counts()
+        made["duo"].clear()
+        made["plain"].clear()
         torch.cuda.synchronize()
         t0 = time.time()
         out = run_cli(cli, ["-t1", "-xpacbio", ref_fa, reads_fq])
         wall = time.time() - t0
         n = {k: _build.LAUNCHES[k] for k in MAPPER}
+        nd, npl = len(made["duo"]), len(made["plain"])
         sha, body = sam_digest(out)
         if sha != E2E_SHA256:
             fail(f"real-size SAM digest {sha} (MINIALIGN_DUO={env}) != JAX "
@@ -840,6 +882,12 @@ def main():
         if n["gather"] != n["fill"]:
             fail(f"real size: {n['gather']} gather launches for "
                  f"{n['fill']} fill launches")
+        if n["duo"] != nd or n["fill"] != 2 * nd + npl or \
+                not nd <= n["dtrace"] <= nd + npl:
+            fail(f"real size: launches {n} for {nd} duo batches and {npl} "
+                 f"batches of downs or ups (a duo batch: two fills, one "
+                 f"counted as the duo, and a walk; a batch of downs or "
+                 f"ups: a fill, and a walk for ups)")
         if env == "1":
             launches = n
             batches = sorted(_build.TRACED_FILL_B)
@@ -850,10 +898,13 @@ def main():
         say(f"[6] real size -t1 -xpacbio, MINIALIGN_DUO={env}: SAM "
             f"identical to the JAX package's ({recs} records); wall "
             f"{wall:.2f} s{' (the first map)' if env == '1' else ''}, "
-            f"{nbases / wall / 1e6:.3f} Mbases/s, launches {n}, problems "
+            f"{nbases / wall / 1e6:.3f} Mbases/s, launches {n} "
+            f"({sum(n.values()) - n['duo']} in all) for {nd} duo batches "
+            f"and {npl} of downs or ups, problems "
             f"per traced fill launch {sorted(_build.TRACED_FILL_B)} on "
             f"{card}")
     del os.environ["MINIALIGN_DUO"]
+    FillEngine._duo_batch, FillEngine._batch = builders
     if not native.available():
         fail("the port's host library (csrc/host) did not load")
     _build.reset_counts()
@@ -880,30 +931,36 @@ def main():
         f"{gms:.5f} ms device time, wrapper {gwms:.5f} ms a call on {card}")
 
     # ---- 4b again at the E2E run's duo launch size (a duo batch's one
-    # traced fill: TRACED_FILL_B of the duo run)
+    # traced fill: TRACED_FILL_B of the duo run): the fused fill against
+    # the same fill without the epilogue, on ~300-base downs
     if not batches:
         fail("real size: no traced fill launch")
     Bd = batches[len(batches) // 2]
-    run_k, run_p, summ, (sc, mi_, mj_), blk, nd = duo_case(Bd, 99)
-    lib = _build.library()
-    desc = torch.empty(cuda_gather.WORDS * 2 * Bd, dtype=torch.int32,
-                       device=dev)
-    stream = _build.stream_of(blk)
-    dargs = (sc.data_ptr(), mi_.data_ptr(), mj_.data_ptr(),
-             blk[nd:].data_ptr(), Bd, desc.data_ptr(), summ[14:].data_ptr(),
-             Bd, stream)
-    dms = kbench.device_ms(torch, lambda: lib.duo_window_launch(*dargs))
-    run_k()                                      # warm-up: allocations
+    run_k, run_p, summ, dargs, dnb, window = duo_case(Bd, 99)
+    pa = pr["affine"]
+    dms = kbench.device_ms(torch, run_k, calls=40)
+    fms = kbench.device_ms(torch, lambda: cuda_fill.fill_cuda(
+        pa, 64, dnb, False, *dargs), calls=40)
+    got = run_k()
     _, dwms = timed(torch, run_k, 3, kbench.WRAP_CALLS)
-    (want, dsum), dpms = timed(torch, run_p, 3)
-    if not (torch.equal(desc, want) and torch.equal(summ[14:], dsum)):
-        fail(f"duo window kernel != duo_window_plain at B={Bd}")
-    stats["duo"].update(max_abs_err=err["duo"], ms=dms, plain_ms=dpms,
-                        library_ms=None,
+    want, dpms = timed(torch, run_p, 3)
+    same_duo(Bd, got, want, summ)
+    # D1's own work, the window: its plain version on the kernel's down
+    # maxima (on the card), its bound from the bytes and operations it
+    # adds to the fill; its device time the fused fill's less the same
+    # fill's without the epilogue
+    wpms = kbench.device_ms(torch, lambda: window(got[0])[0], calls=40)
+    stats["duo"].update(max_abs_err=err["duo"], ms=dms - fms,
+                        plain_ms=wpms, library_ms=None, fused_fill_ms=dms,
+                        fill_only_ms=fms, fused_fill_plain_ms=dpms,
                         **bound(DUO_BYTES * Bd, DUO_OPS * Bd))
-    say(f"[4b] duo window at the E2E median duo launch (B={Bd}): equal to "
-        f"plain; kernel {dms:.5f} ms device time, wrapper {dwms:.5f} ms a "
-        f"call, plain {dpms:.4f} ms; {show(stats['duo'])} on {card}")
+    say(f"[4b] duo epilogue at the E2E median duo launch (B={Bd}, ~300-base "
+        f"downs): equal to plain; the fused fill {dms:.5f} ms device time, "
+        f"the same fill without the epilogue {fms:.5f} ms (epilogue "
+        f"{dms - fms:+.5f} ms; the window's plain version {wpms:.5f} ms "
+        f"device time; {show(stats['duo'])}), the fused fill's wrapper "
+        f"{dwms:.5f} ms a call, its plain version (fill_plain, then "
+        f"duo_window_plain) {dpms:.4f} ms on {card}")
 
     # ---- 3/4 again at the E2E run's launch size
     Bs = Bd
@@ -961,12 +1018,14 @@ def main():
             library_ms=st["library_ms"] if n_lib else None,
             library_device_ms=st["library_device_ms"] if n_lib else None,
             library_kernel_device_ms=st["library_kernel_device_ms"]
-            if n_lib else None)
+            if n_lib else None,
+            library_bound_ms=st["library_bound_ms"] if n_lib else None)
         libs = (f"on the {n_lib} cases that are one PyTorch call, kernel "
                 f"{st['library_kernel_device_ms']:.5f} ms device, "
                 f"{st['library_kernel_ms']:.5f} ms a call (host), against "
                 f"{st['library_device_ms']:.5f} and "
-                f"{st['library_ms']:.5f} ms") if n_lib else \
+                f"{st['library_ms']:.5f} ms, bound on those cases "
+                f"{st['library_bound_ms']:.6f} ms") if n_lib else \
             "no case is one PyTorch call"
         say(f"[7] {k}: {st['compared']} runs equal to the plain twin; "
             f"kernel {st['device_ms']:.5f} ms device, {st['ms']:.5f} ms a "

@@ -33,7 +33,7 @@ from concurrent.futures import ThreadPoolExecutor
 PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
-SOURCES = ("fill.cu", "gather.cu", "dtrace.cu", "duo.cu", "lookup.cu",
+SOURCES = ("fill.cu", "gather.cu", "dtrace.cu", "lookup.cu",
            "probe_subint32.cu", "probe_lowprec.cu", "probe_bf16ops.cu",
            "probe_wordstream.cu")
 HEADERS = ("probe_common.cuh",)
@@ -42,8 +42,9 @@ ARCH = "arch=compute_90a,code=sm_90a"
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
 
-# the mapper's kernels, the sharded index's lookup (parallel/), then the
-# step-mix probes P1-P4 (probes/)
+# the mapper's kernels ("duo": the fill's duo epilogue, counted once a
+# fused launch), the sharded index's lookup (parallel/), then the step-mix
+# probes P1-P4 (probes/)
 LAUNCHES = {"fill": 0, "gather": 0, "dtrace": 0, "duo": 0, "lookup": 0,
             "p1": 0, "p2": 0, "p3": 0, "p4": 0}
 TRACED_FILL_B: list[int] = []
@@ -59,13 +60,14 @@ _LL = ctypes.c_longlong
 _SIGS = {
     # name: argtypes (all return int = cudaError_t)
     "fill_launch": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
-                    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                    _P],
     "gather_pair_launch": [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _P, _P,
                            _P],
     "dtrace_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P,
                       _P, _P, _I, _P],
-    "duo_window_launch": [_P, _P, _P, _P, _I, _P, _P, _LL, _P],
-    "lookup_launch": [_P, _P, _P, _I, _LL, _P, _LL, _P, _P, _P],
+    "lookup_launch": [_P, _P, _P, _P, _P, _P, _I, _LL, _P, _LL, _P, _I, _I,
+                      _P],
     # the probes' entries end in (device index, stream)
     "p1_probe_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
     "p2_elementwise_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],

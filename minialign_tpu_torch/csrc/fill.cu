@@ -49,6 +49,16 @@
 // - One warp per thread block, so the problems of a small launch spread
 //   over the SMs.
 //
+// The duo epilogue (D1): an untraced launch given a geometry block writes,
+// from the max it holds in registers, each problem's up window as the up
+// batch's descriptor rows and the down score, i and j as the summary's
+// down rows (duo_window below). It replaces the up-window arithmetic of
+// minialign_tpu/extend.py:675-737 (FillEngine._duo_fn, :703 and :710-722,
+// and the three down rows it appends to the summary, :731-734), and is
+// held against minialign_tpu_torch/dp/duo.py:duo_window_plain. It moves
+// ~112 bytes a problem, so a launch of its own would cost more than its
+// work; here it costs none, and the step loop does not see it.
+//
 // Trace layout (the JAX package's, unchanged): masks[b][blk][s][r] holds
 // the 6-bit codes of lanes r + 16 f at bits [8 f, 8 f + 6).
 
@@ -63,6 +73,7 @@ constexpr int BLK = 32;
 constexpr int NCODE = 4;
 constexpr int TAIL_N = 96;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr long long CAPU_ADD = 4 * 64 + 2 * TAIL_N + 64;  // _slice_cap(.., 64)
 
 struct FillParams {
   int sub[25];   // sub[b * 5 + a]: query base b against ref base a
@@ -266,6 +277,64 @@ __device__ __forceinline__ void step(Band<W>& st, Smem<W>& sm,
   st.p = pn;
 }
 
+__device__ __forceinline__ long long clip(long long x, long long lo,
+                                          long long hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// Problem b's duo rows from its down max (sc, mi, mj), for B problems:
+//   tp0   = clip(cp0 + mi, 1, rlen),  tp1 = clip(cp1 + mj, 1, qlen)
+//   ok    = sc > 0
+//   lna_u = min(2 tp1 + CAPU_ADD, tp0) * ok,  lnb_u = tp1 * ok
+// and the up batch's packed descriptor block (dp/cuda_gather.py:pack_desc,
+// R = 2B rows: side a's B rows, then side b's) gets
+//   row b     : base rvbase, start rlen - tp0, cap = elen = lna_u,
+//               seglen rlen, wrap 0   (the reference's reverse strand)
+//   row B + b : base qub,    start qlen - tp1, cap = elen = lnb_u,
+//               seglen qlen, wrap 0   (the read's other strand)
+// The base stays a separate int64 word and the gather adds the start in
+// 64 bits, so rvbase + rlen - tp0 is never folded into an int32 (the
+// TPU kernel's offa_u was int32). A failed down (ok = 0) gets empty up
+// windows: all-NCODE rows whose fill scores 0 at once.
+// geom: the packed geometry block (dp/duo.py:pack_geom), int32 words:
+// rvbase (int64) [2B], qub (int64) [2B], then rlen, qlen, cp0, cp1 [B
+// each]. desc: 7 int32 words a row (base's two, then start, cap, seglen,
+// wrap, elen) over R rows. dsum: the down rows, row stride ld.
+__device__ void duo_window(const int32_t* __restrict__ geom,
+                           int32_t* __restrict__ desc,
+                           int32_t* __restrict__ dsum, long long ld, int b,
+                           int B, int sc, int mi, int mj) {
+  const long long* g64 = reinterpret_cast<const long long*>(geom);
+  const long long rvbase = g64[b], qub = g64[B + b];
+  const int32_t* g32 = geom + 4 * B;
+  const long long rlen = g32[b], qlen = g32[B + b];
+  const long long cp0 = g32[2 * B + b], cp1 = g32[3 * B + b];
+  const long long tp0 = clip(cp0 + mi, 1, rlen);
+  const long long tp1 = clip(cp1 + mj, 1, qlen);
+  const long long ok = sc > 0;
+  const long long u = 2 * tp1 + CAPU_ADD;
+  const int lna = (int)((u < tp0 ? u : tp0) * ok);
+  const int lnb = (int)(tp1 * ok);
+  const int R = 2 * B;
+  long long* base = reinterpret_cast<long long*>(desc);
+  int32_t* f = desc + 2 * R;                 // start, cap, seglen, wrap, elen
+  base[b] = rvbase;
+  base[B + b] = qub;
+  f[b] = (int)(rlen - tp0);
+  f[B + b] = (int)(qlen - tp1);
+  f[R + b] = lna;
+  f[R + B + b] = lnb;
+  f[2 * R + b] = (int)rlen;
+  f[2 * R + B + b] = (int)qlen;
+  f[3 * R + b] = 0;
+  f[3 * R + B + b] = 0;
+  f[4 * R + b] = lna;
+  f[4 * R + B + b] = lnb;
+  dsum[b] = sc;
+  dsum[ld + b] = mi;
+  dsum[2 * ld + b] = mj;
+}
+
 template <int W, bool TRACE>
 __global__ void __launch_bounds__(32)
 fill_kernel(FillParams P, const int8_t* __restrict__ a,
@@ -275,7 +344,9 @@ fill_kernel(FillParams P, const int8_t* __restrict__ a,
             int32_t* __restrict__ o_i, int32_t* __restrict__ o_j,
             int32_t* __restrict__ o_steps, int32_t* __restrict__ o_blocks,
             uint32_t* __restrict__ masks, uint32_t* __restrict__ dirs,
-            int32_t* __restrict__ iheads, int32_t* __restrict__ rprevs) {
+            int32_t* __restrict__ iheads, int32_t* __restrict__ rprevs,
+            const int32_t* __restrict__ geom, int32_t* __restrict__ desc,
+            int32_t* __restrict__ dsum, long long ld) {
   using G = Geo<W>;
   constexpr int NL = G::NL;
   constexpr int c = G::C;
@@ -395,11 +466,16 @@ fill_kernel(FillParams P, const int8_t* __restrict__ a,
     }
   }
   if (t == 0) {
+    const int oi = bv > 0 ? bi : 0, oj = bv > 0 ? bp + 2 - bi : 0;
     o_score[prob] = bv;
-    o_i[prob] = bv > 0 ? bi : 0;
-    o_j[prob] = bv > 0 ? bp + 2 - bi : 0;
+    o_i[prob] = oi;
+    o_j[prob] = oj;
     o_steps[prob] = nsteps;
     o_blocks[prob] = nblk;
+    if constexpr (!TRACE) {
+      if (geom != nullptr)
+        duo_window(geom, desc, dsum, ld, prob, gridDim.x, bv, oi, oj);
+    }
   }
 }
 
@@ -409,21 +485,30 @@ void launch(const FillParams& P, const int8_t* a, const int32_t* alen,
             int max_blocks, int32_t* o_score, int32_t* o_i, int32_t* o_j,
             int32_t* o_steps, int32_t* o_blocks, uint32_t* masks,
             uint32_t* dirs, int32_t* iheads, int32_t* rprevs,
+            const int32_t* geom, int32_t* desc, int32_t* dsum, long long ld,
             cudaStream_t st) {
   fill_kernel<W, TRACE><<<B, 32, 0, st>>>(
       P, a, alen, la, b, blen, lb, max_blocks, o_score, o_i, o_j, o_steps,
-      o_blocks, masks, dirs, iheads, rprevs);
+      o_blocks, masks, dirs, iheads, rprevs, geom, desc, dsum, ld);
 }
 
 }  // namespace
 
+// geom, desc, dsum, ld: the duo epilogue's geometry block, up descriptor
+// block and down rows (row stride ld), all null (ld 0) but on an
+// untraced duo launch; geom and desc 8-byte aligned (their int64 bases).
 extern "C" int fill_launch(const void* a, const void* alen, int la,
                            const void* b, const void* blen, int lb, int B,
                            int W, int max_blocks, int trace,
                            const void* params, void* o_score, void* o_i,
                            void* o_j, void* o_steps, void* o_blocks,
                            void* masks, void* dirs, void* iheads,
-                           void* rprevs, void* stream) {
+                           void* rprevs, const void* geom, void* desc,
+                           void* dsum, long long ld, void* stream) {
+  if (geom != nullptr &&
+      (trace || desc == nullptr || dsum == nullptr || ld < B ||
+       ((uintptr_t)geom | (uintptr_t)desc) % 8))
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   FillParams P;
   std::memcpy(&P, params, sizeof(P));
@@ -440,10 +525,13 @@ extern "C" int fill_launch(const void* a, const void* alen, int la,
   auto d = static_cast<uint32_t*>(dirs);
   auto ih = static_cast<int32_t*>(iheads);
   auto rp = static_cast<int32_t*>(rprevs);
+  auto gm = static_cast<const int32_t*>(geom);
+  auto dc = static_cast<int32_t*>(desc);
+  auto ds = static_cast<int32_t*>(dsum);
   auto st = static_cast<cudaStream_t>(stream);
 #define FILL_CASE(WW, TT)                                                   \
   launch<WW, TT>(P, A, al, la, Bs, bl, lb, B, max_blocks, os, oi, oj, on, \
-                 ob, m, d, ih, rp, st)
+                 ob, m, d, ih, rp, gm, dc, ds, ld, st)
   if (W == 64) {
     if (trace) FILL_CASE(64, true); else FILL_CASE(64, false);
   } else if (W == 32) {

@@ -262,15 +262,27 @@ def fill_plain(p: ScoreParams, W: int, max_blocks: int, trace: bool,
 
 def fill(p: ScoreParams, W: int, max_blocks: int, trace: bool,
          a: torch.Tensor, alen: torch.Tensor,
-         b: torch.Tensor, blen: torch.Tensor):
+         b: torch.Tensor, blen: torch.Tensor, duo=None):
     """The fill on a's device: the CUDA kernel for CUDA tensors (it
-    launches or raises), `fill_plain` for CPU tensors."""
+    launches or raises), `fill_plain` for CPU tensors. duo: (geom, out)
+    on an untraced fill, a duo batch's geometry block (duo.pack_geom)
+    and the (3, B) int32 rows that take the down score, i and j; the
+    result is then (FillResult, the up batch's descriptor block), the
+    kernel's epilogue or, on the CPU, `duo.duo_window_plain` after the
+    plain fill."""
     if a.device.type == "cuda":
         from .cuda_fill import fill_cuda
-        return fill_cuda(p, W, max_blocks, trace, a, alen, b, blen)
-    if a.device.type == "cpu":
-        return fill_plain(p, W, max_blocks, trace, a, alen, b, blen)
-    raise ValueError(f"no fill for device {a.device}")
+        return fill_cuda(p, W, max_blocks, trace, a, alen, b, blen, duo)
+    if a.device.type != "cpu":
+        raise ValueError(f"no fill for device {a.device}")
+    if duo is not None and trace:
+        raise ValueError("fill: the duo epilogue runs on an untraced fill")
+    res = fill_plain(p, W, max_blocks, trace, a, alen, b, blen)
+    if duo is None:
+        return res
+    from .duo import duo_window_plain
+    desc, _ = duo_window_plain(res.max_score, res.max_i, res.max_j, *duo)
+    return res, desc
 
 
 def pad_codes(seqs, pad_to: int | None = None) -> tuple[np.ndarray, np.ndarray]:

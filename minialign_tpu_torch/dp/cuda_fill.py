@@ -7,6 +7,9 @@ problem and per thread block; the kernel stops a problem at its own
 termination, so trace blocks after that stay zero (the traceback never
 reads past the max), and n_blocks is the largest per-problem block
 count, which equals the batch-wide count of the batched reference.
+An untraced launch given a duo geometry block also writes the duo's up
+descriptor block and down rows in its epilogue (D1, held against
+dp/duo.py:duo_window_plain).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from ..params import ScoreParams
 
 from .. import _build
 from .band import BLK, FillResult, TraceBuffers, fill_params
+from .cuda_gather import WORDS
+from .duo import GEOM_WORDS
 
 
 def _check_rows(x: torch.Tensor, n: torch.Tensor, name: str):
@@ -30,10 +35,27 @@ def _check_rows(x: torch.Tensor, n: torch.Tensor, name: str):
                          "on the rows' device")
 
 
+def _check_duo(geom: torch.Tensor, out: torch.Tensor, B: int, dev):
+    if geom.dtype != torch.int32 or geom.shape != (GEOM_WORDS * B,) or \
+            geom.device != dev or not geom.is_contiguous() or \
+            geom.data_ptr() % 8:
+        raise ValueError("fill: the duo geometry must be a packed "
+                         "contiguous int32 block of the batch, 8-byte "
+                         "aligned, on the rows' device")
+    if out.dtype != torch.int32 or out.shape != (3, B) or \
+            out.device != dev or (B and out.stride(1) != 1):
+        raise ValueError("fill: the duo's down rows must be (3, B) int32 "
+                         "with unit column stride on the rows' device")
+
+
 def fill_cuda(p: ScoreParams, W: int, max_blocks: int, trace: bool,
               a: torch.Tensor, alen: torch.Tensor,
-              b: torch.Tensor, blen: torch.Tensor):
-    """CUDA fill: same arguments and results as band.fill_plain."""
+              b: torch.Tensor, blen: torch.Tensor, duo=None):
+    """CUDA fill: same arguments and results as band.fill_plain. duo:
+    (geom, out) on an untraced fill, the duo epilogue's geometry block
+    (dp/duo.pack_geom) and the (3, B) int32 rows that take the down
+    score, i and j; the result is then (FillResult, up descriptor
+    block), as band.fill gives it."""
     if W not in (16, 32, 64):
         raise ValueError(f"band width {W} not in (16, 32, 64)")
     if a.device.type != "cuda" or b.device != a.device:
@@ -54,6 +76,14 @@ def fill_cuda(p: ScoreParams, W: int, max_blocks: int, trace: bool,
         rprevs = torch.zeros((B, max_blocks), dtype=torch.int32, device=dev)
     else:
         masks = dirs = iheads = rprevs = None
+    geom = dsum = desc = None
+    if duo is not None:
+        if trace:
+            raise ValueError("fill: the duo epilogue runs on an untraced "
+                             "fill")
+        geom, dsum = duo
+        _check_duo(geom, dsum, B, dev)
+        desc = torch.empty(WORDS * 2 * B, dtype=torch.int32, device=dev)
     if B:
         lib = _build.library()
         with torch.cuda.device(dev):
@@ -64,8 +94,12 @@ def fill_cuda(p: ScoreParams, W: int, max_blocks: int, trace: bool,
                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
                 out[3].data_ptr(), out[4].data_ptr(),
                 _build.ptr(masks), _build.ptr(dirs), _build.ptr(iheads),
-                _build.ptr(rprevs), _build.stream_of(a))
+                _build.ptr(rprevs), _build.ptr(geom), _build.ptr(desc),
+                _build.ptr(dsum), dsum.stride(0) if duo is not None else 0,
+                _build.stream_of(a))
         _build.count("fill")
+        if duo is not None:
+            _build.count("duo")
         if trace:
             _build.count_traced_fill(B)
         _build.check(lib, rc, "fill kernel")
@@ -76,4 +110,4 @@ def fill_cuda(p: ScoreParams, W: int, max_blocks: int, trace: bool,
     if trace:
         return res, TraceBuffers(masks=masks, dirs=dirs, iheads=iheads,
                                  rprevs=rprevs)
-    return res
+    return res if duo is None else (res, desc)

@@ -1,5 +1,6 @@
-"""The up window of a fused down+up ("duo") batch (csrc/duo.cu) and its
-plain PyTorch version.
+"""The up window of a fused down+up ("duo") batch, D1: its geometry
+block and its plain PyTorch version. On the card it is the down fill's
+epilogue (csrc/fill.cu:duo_window, through band.fill(..., duo=...)).
 
 Replaces the device arithmetic of minialign_tpu/extend.py:675-737
 (FillEngine._duo_fn): from the down fill's max and each problem's
@@ -17,7 +18,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import _build
 from .band import TAIL_N
 from .cuda_gather import WORDS
 
@@ -80,46 +80,3 @@ def duo_window_plain(score: torch.Tensor, max_i: torch.Tensor,
         out.copy_(dsum)
         dsum = out
     return desc, dsum
-
-
-def duo_window(score: torch.Tensor, max_i: torch.Tensor,
-               max_j: torch.Tensor, geom: torch.Tensor,
-               out: torch.Tensor | None = None):
-    """duo_window_plain's results on the inputs' device: one kernel
-    launch for CUDA tensors (it launches or raises), duo_window_plain for
-    CPU tensors. score, max_i, max_j: the down fill's (B,) int32 rows;
-    geom: the packed geometry block (pack_geom) on the same device; out:
-    a (3, B) int32 tensor with unit column stride to take the down rows,
-    e.g. rows of the walk's summary buffer."""
-    if geom.device.type == "cpu":
-        return duo_window_plain(score, max_i, max_j, geom, out)
-    if geom.device.type != "cuda":
-        raise ValueError(f"no duo window for device {geom.device}")
-    dev = geom.device
-    if geom.dtype != torch.int32 or geom.dim() != 1 or \
-            not geom.is_contiguous() or geom.numel() % GEOM_WORDS:
-        raise ValueError("duo_window: geom must be a packed contiguous "
-                         "int32 block")
-    B = geom.numel() // GEOM_WORDS
-    for t in (score, max_i, max_j):
-        if t.dtype != torch.int32 or t.shape != (B,) or t.device != dev or \
-                not t.is_contiguous():
-            raise ValueError("duo_window: the down rows must be contiguous "
-                             "(B,) int32 tensors on geom's device")
-    if out is None:
-        out = torch.empty((3, B), dtype=torch.int32, device=dev)
-    if out.dtype != torch.int32 or out.shape != (3, B) or \
-            out.device != dev or (B and out.stride(1) != 1):
-        raise ValueError("duo_window: out must be (3, B) int32 with unit "
-                         "column stride on geom's device")
-    desc = torch.empty(WORDS * 2 * B, dtype=torch.int32, device=dev)
-    if B:
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            rc = lib.duo_window_launch(
-                score.data_ptr(), max_i.data_ptr(), max_j.data_ptr(),
-                geom.data_ptr(), B, desc.data_ptr(), out.data_ptr(),
-                out.stride(0), _build.stream_of(geom))
-        _build.count("duo")
-        _build.check(lib, rc, "duo window kernel")
-    return desc, out

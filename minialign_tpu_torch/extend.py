@@ -25,7 +25,7 @@ from .dp.band import fill
 from .dp.cuda_gather import (desc_fields, gather_pair, pack_desc, pad_store,
                              upload)
 from .dp.dtrace import SUMMARY_ROWS, dtrace
-from .dp.duo import CAPU_ADD, duo_window, pack_geom
+from .dp.duo import CAPU_ADD, pack_geom
 from .dp.traceback import TraceResult, _identity
 from .index.build import MMIndex
 from .params import MapParams, ScoreParams
@@ -489,13 +489,13 @@ class FillEngine:
         a, b = gather_pair(ma["store"], mb["store"], down, B,
                            _row_len(ma["elen"]), _row_len(mb["elen"]))
         elen = desc_fields(down)["elen"]
-        res = fill(self.p, W, band.max_blocks_for(ma["elen"], mb["elen"]),
-                   False, a, elen[:B], b, elen[B:])
         nsr = len(SUMMARY_ROWS)
         summ = torch.empty((nsr + 3, B), dtype=torch.int32,
                            device=self.device)
-        up, _ = duo_window(res.max_score, res.max_i, res.max_j,
-                           blk[len(desc):], out=summ[nsr:])
+        # the up window from the down max, in the down fill's epilogue
+        _, up = fill(self.p, W, band.max_blocks_for(ma["elen"], mb["elen"]),
+                     False, a, elen[:B], b, elen[B:],
+                     duo=(blk[len(desc):], summ[nsr:]))
         la = np.minimum(2 * qlen + CAPU_ADD, rlen)
         a, b = gather_pair(self._ref_store, self._q_store, up, B,
                            _row_len(la), _row_len(qlen))

@@ -5,6 +5,7 @@ run, on one CUDA card.
     python minialign_tpu_torch/kbench.py [--root DIR] [--batches 128,8]
         [--reps 3] [--e2e [--duo 1,0]] [--probes]
         [--walls t1,t4,p2,p4 [--wall-reps 2]] [--wall-split 1,2,4]
+        [--lookup]
 
 Gather: chip_smoke.py's phase 2 case (512 windows of 32 kb from a 10 MB
 store) and one launch of E2E_GATHER (one problem a side at about the
@@ -18,7 +19,9 @@ Kernels: W = 64, the -xpacbio (combined) scores, the first B of 128
 seeded pairs of ~20 kb with ~12% edits (chip_smoke.py's phase 3 set),
 for each B of --batches: the traced and the untraced fill and the walk
 on the traced fill's buffers, each the median of --reps windows of
-CALLS calls timed with CUDA events. --e2e maps
+CALLS calls timed with CUDA events; then the fill kernels' registers a
+thread, read from the built library (cuobjdump --dump-resource-usage).
+--e2e maps
 bench_e2e.make_workload's 100 x 20 kb reads on a 5 Mb genome with -t1
 -xpacbio, once for each MINIALIGN_DUO setting of --duo (default "1,0":
 the fused duo, then the two-step path): one warm-up, three timed runs
@@ -46,6 +49,11 @@ branch), "pN" is -t1 with MINIALIGN_PROC_WORKERS=N; each with the
 output's digest without @PG and the merge's remaps. --wall-split 1,2,4
 cuts such a run of this checkout into its steps, each in processes of
 its own, one after another (wall_split).
+
+--lookup times D3 (the sharded lookup) at chip_smoke.py's phase 9a
+shapes: kernel, wrapper, the sharded path as seeding calls it and
+torch.searchsorted; with this checkout's design also whole lines
+against sectors by the number of queries (lookup_bench).
 
 --batches "" leaves the fill and walk out. --root DIR imports
 minialign_tpu_torch from DIR instead of this checkout, so that one call
@@ -231,6 +239,25 @@ def duo_geometry(seed=3, B=48):
     return cols
 
 
+def duo_fill_case(band, seed, B, n=300):
+    """(ab, alen, bb, blen, geometry): B down problems of ~n bases (the
+    first two all NCODE at B > 2, so that their downs fail) and
+    duo_geometry's edge geometry behind them, with a read and a
+    reference past 262 kb (2^18 characters, the TPU kernels' side) in
+    rows 11 and 12 where B reaches them."""
+    ab, alen, bb, blen = pairs(band, seed, B, n)
+    if B > 2:
+        ab[:2], alen[:2] = band.NCODE, 0
+    c = duo_geometry(seed, B)
+    for k, e in ((11, dict(qlen=270_000, cp1=269_990)),
+                 (12, dict(rlen=300_000, cp0=150_000, qlen=280_000,
+                           cp1=100_000))):
+        if k < B:
+            for f, v in e.items():
+                c[f][k] = v
+    return ab, alen, bb, blen, c
+
+
 def gather_big(seed=1):
     """chip_smoke's phase 2 case: (flat store, side, L), 512 windows of
     32 kb from a 5 Mb (forward + reverse) store, with the segment ends,
@@ -302,6 +329,64 @@ def lookup_queries(keys, seed=5):
     return np.random.default_rng(seed).permutation(q)
 
 
+# Shard sizes around one leaf block of D3's search tree (15 keys), one
+# node (16), one node's children (17) and their powers
+# (parallel/cuda_lookup.py)
+LOOKUP_EDGE_K = (1, 15, 16, 17, 255, 256, 257, 4097)
+
+
+def lookup_edge_tables(K, n, seed=0):
+    """(keys_sh, starts_sh, counts_sh) of n shards of K keys, laid out as
+    shard_index_arrays lays out a table (sorted, hash ranges in shard
+    order, UINT64_MAX and zeros after the last key), with fewer keys than
+    slots so that a shard is part pad and, at n > 1, the last all pad;
+    half the keys below 2^33, the rest anywhere in 64 bits."""
+    rng = np.random.default_rng(seed)
+    T = max(1, K * (n - 1) - K // 2) if n > 1 else K - K // 3
+    keys = np.unique(np.concatenate([
+        rng.integers(0, 1 << 33, T, dtype=np.uint64),
+        rng.integers(0, U64MAX, T, dtype=np.uint64, endpoint=True)]))
+    keys = np.sort(rng.permutation(keys)[:T])
+    T = len(keys)
+    cn = rng.integers(1, 5, T)
+    st = np.concatenate([[0], np.cumsum(cn)[:-1]])
+    out = []
+    for x, pad in ((keys, U64MAX), (st, 0), (cn, 0)):
+        full = np.full(K * n, pad, x.dtype)
+        full[:T] = x
+        out.append(full.reshape(n, K))
+    return out
+
+
+def lookup_edge_queries(keys_sh, seed=1):
+    """Every key of the table, its neighbours, 0, the pad value, the
+    edges of 2^32 and of the sign bit, and some queries twice,
+    shuffled."""
+    k = np.unique(np.asarray(keys_sh, np.uint64))
+    k = k[k != U64MAX]
+    extra = np.asarray([0, 1, (1 << 32) - 1, 1 << 32, (1 << 63) - 1,
+                        1 << 63, U64MAX - 1, U64MAX, U64MAX], np.uint64)
+    q = np.concatenate([k, k + np.uint64(1), k - np.uint64(1), extra,
+                        k[:7], k[-3:]])
+    return np.random.default_rng(seed).permutation(q)
+
+
+def lookup_cases(build_index, IndexParams, shards=(1, 2, 8)):
+    """(name, n, tables, queries) of every D3 edge case: the
+    LOOKUP_KINDS tables and the LOOKUP_EDGE_K shard sizes, each split
+    over each shard count."""
+    from minialign_tpu_torch.parallel.shard import shard_index_arrays
+    for kind in LOOKUP_KINDS:
+        keys, off = lookup_table(kind, build_index, IndexParams)
+        for n in shards:
+            yield (kind, n, shard_index_arrays(keys, off, n),
+                   lookup_queries(keys))
+    for K in LOOKUP_EDGE_K:
+        for n in shards:
+            tabs = lookup_edge_tables(K, n, seed=K * 10 + n)
+            yield (f"K={K}", n, tabs, lookup_edge_queries(tabs[0]))
+
+
 def lookup_tensors(torch, tabs, q, device):
     """shard_index_arrays' numpy tables and the query hashes as the
     lookup kernel takes them: int64 tensors (the uint64 bits) on
@@ -343,6 +428,183 @@ def lookup_ops(keys_sh, q):
     levels a (shard, query) pair, and 4 for the found test and writes."""
     S, K = keys_sh.shape
     return S * len(q) * (4 * int(np.ceil(np.log2(K + 1))) + 4)
+
+
+def lookup_shapes(mi, reads, seed=9):
+    """[(name, keys, offsets, queries)] of D3's timed shapes: "read", the
+    median read's minimizer hashes against the index mi (the main path's
+    shape: seeding looks up one read a call, chain.collect_seeds);
+    "e2e", every read's hashes in one launch; "big", 10^5 queries (half
+    hits) against 10^7 random keys (80 MB, past L2). Each table is
+    split 2 ways by the caller."""
+    from minialign_tpu_torch.index.sketch import sketch
+    per_read = sorted((sketch(np.asarray(c, np.int64) & 3, mi.k, mi.w)[0]
+                       for c in reads), key=len)
+    rng = np.random.default_rng(seed)
+    big_keys = np.unique(rng.integers(0, U64MAX, 10_200_000,
+                                      dtype=np.uint64))[:10_000_000]
+    rng.shuffle(big_keys)
+    big_off = np.concatenate([[0], np.cumsum(rng.integers(
+        1, 5, len(big_keys)))]).astype(np.uint32)
+    big_q = np.concatenate([rng.choice(big_keys, 50_000),
+                            rng.integers(0, U64MAX, 50_000,
+                                         dtype=np.uint64)])
+    return [("read", mi.keys, mi.offsets,
+             np.asarray(per_read[len(per_read) // 2], np.uint64)),
+            ("e2e", mi.keys, mi.offsets,
+             np.concatenate(per_read).astype(np.uint64)),
+            ("big", big_keys, big_off, big_q)]
+
+
+def lookup_timing(torch, tabs, q, dev, split=None, library=True):
+    """({ms, wrapper_ms, library_ms, ...}, (2, Q) result, (keys, starts,
+    counts, queries) on the device) of the loaded package's D3 on
+    shard_index_arrays' tables `tabs` and the query hashes q on device
+    dev: the C entry's device time (device_ms, 20 launches a window),
+    the wrapper's time a call with the queries on the device (CUDA
+    events, 20 calls a window) and torch.searchsorted on the same
+    sign-flipped table (device time). This commit's design takes the
+    tree (built once, not timed) and split (default: the wrapper's); an
+    older commit's takes the (S, K) tables, and its (S, Q) rows come
+    back summed."""
+    from minialign_tpu_torch import _build
+    from minialign_tpu_torch.parallel import cuda_lookup as cl
+    kt, st, ct, qt = lookup_tensors(torch, tabs, q, dev)
+    S, K = kt.shape
+    Q = len(q)
+    lib = _build.library()
+    stream = _build.stream_of(kt)
+    if hasattr(cl, "build_tree"):
+        tree = cl.build_tree(kt, st, ct)
+        if split is None:
+            split = cl.use_split(
+                S, K, Q, torch.cuda.get_device_properties(dev).L2_cache_size)
+        out = torch.empty((2, Q), dtype=torch.int64, device=dev)
+        ptrs = (tree.leaf.data_ptr(), tree.nodes.data_ptr(),
+                tree.leaf_sums.data_ptr(), tree.node_sums.data_ptr(),
+                tree.pairs.data_ptr(), tree.bounds.data_ptr(), S, K,
+                qt.data_ptr(), Q, out.data_ptr(), int(split), dev.index,
+                stream)
+        run = lambda: cl.lookup(tree, qt, split)  # noqa: E731
+        levels = cl.smem_levels(S, K, split)
+        extra = dict(levels=levels, split=split, tree_levels=tree.levels,
+                     tree_bytes=tree.nbytes(),
+                     smem_bytes=cl.smem_bytes(S, K, levels, split))
+    else:
+        so = torch.empty((S, Q), dtype=torch.int64, device=dev)
+        co = torch.empty_like(so)
+        ptrs = (kt.data_ptr(), st.data_ptr(), ct.data_ptr(), S, K,
+                qt.data_ptr(), Q, so.data_ptr(), co.data_ptr(), stream)
+        run = lambda: cl.lookup(kt, st, ct, qt)  # noqa: E731
+        extra = {}
+    ms = device_ms(torch, lambda: lib.lookup_launch(*ptrs), calls=20)
+    got = run()
+    _, wms = timed(torch, run, 3, 20)
+    if isinstance(got, tuple):
+        got = torch.stack([got[0].sum(0), got[1].sum(0)])
+    res = dict(ms=ms, wrapper_ms=wms, **extra)
+    if library:
+        kf = kt ^ cl.SIGN
+        qf = (qt ^ cl.SIGN)[None, :].expand(S, -1).contiguous()
+        res["library_ms"] = device_ms(
+            torch, lambda: torch.searchsorted(kf, qf), calls=20)
+    return res, got, (kt, st, ct, qt)
+
+
+def lookup_want(torch, kt, st, ct, qt):
+    """The plain version's (2, Q) sum over the shards on the (S, K)
+    tables themselves (cuda_lookup.lookup_plain, which every commit's
+    package has), for holding either design's kernel to."""
+    from minialign_tpu_torch.parallel import cuda_lookup as cl
+    p_st, p_cn = cl.lookup_plain(kt, st, ct, qt)
+    return torch.stack([p_st.sum(0), p_cn.sum(0)])
+
+
+def lookup_path_ms(torch, tabs, q, dev, calls=50):
+    """Host ms a call of the sharded index's lookup as seeding calls it
+    (ShardedIndex.lookup's body: numpy hashes in, the shards' sums read
+    back to the host), the tables on [dev, dev], and of its first stages
+    alone: {"upload": the hashes' upload, "launch": the upload and the
+    lookup's launches, "path": all of it}, each the median of 3 windows
+    of `calls` calls on the host clock, each call waiting on the device
+    (a synchronize, or the path's own read-back)."""
+    from minialign_tpu_torch.dp.cuda_gather import upload
+    from minialign_tpu_torch.parallel import cuda_lookup as cl
+    from minialign_tpu_torch.parallel import shard
+    mesh = [dev, dev]
+    tables = shard.place_shards(mesh, *tabs)
+    qh = np.ascontiguousarray(q, np.uint64).view(np.int64)
+
+    def path():
+        r = shard.sharded_lookup(mesh, tables, q)
+        return [x.cpu() for x in r] if isinstance(r, tuple) else r.cpu()
+
+    def up():
+        upload(qh, dev)
+        torch.cuda.synchronize()
+
+    def launch():
+        t = upload(qh, dev)
+        if hasattr(cl, "build_tree"):
+            cl.lookup(tables[0], t)
+        else:
+            cl.lookup(*tables[0], t)
+        torch.cuda.synchronize()
+
+    out = {}
+    for name, fn in (("upload", up), ("launch", launch), ("path", path)):
+        fn()
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            ts.append((time.perf_counter() - t0) * 1e3 / calls)
+        out[name] = sorted(ts)[1]
+    return out
+
+
+def lookup_bench(torch, pkg, emit):
+    """D3 at lookup_shapes' three shapes (the E2E workload's index and
+    reads, -xpacbio), each table split 2 ways on one card: the loaded
+    package's kernel, wrapper, sharded path and torch.searchsorted
+    (lookup_timing, lookup_path_ms), held to the plain version; for this
+    commit's design also whole lines against sectors by the number of
+    queries, where use_split switches (device time, each held to the
+    plain version too)."""
+    from minialign_tpu_torch import cli
+    from minialign_tpu_torch.index.build import build_index
+    from minialign_tpu_torch.io import bseq
+    from minialign_tpu_torch.parallel import cuda_lookup as cl
+    from minialign_tpu_torch.parallel import shard
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ref_fa, reads_fq, _ = e2e_workload()
+    o = cli.Opts()
+    cli.parse_argv(o, ["-xpacbio"])
+    cli.finalize(o)
+    ip, _ = cli.make_params(o)
+    ref = list(bseq.read_seqs(ref_fa))
+    mi = build_index(ip, [x.name for x in ref], [x.codes for x in ref])
+    reads = [x.codes for x in bseq.read_seqs(reads_fq)]
+    for name, keys, off, q in lookup_shapes(mi, reads):
+        tabs = shard.shard_index_arrays(keys, off, 2)
+        res, got, t = lookup_timing(torch, tabs, q, dev)
+        want = lookup_want(torch, *t)
+        row = dict(kind="lookup", pkg=pkg, shape=name, queries=len(q),
+                   keys=len(keys), equal=bool(torch.equal(got, want)),
+                   **res)
+        if name == "read":
+            row["path_ms"] = lookup_path_ms(torch, tabs, q, dev)
+        emit(**row)
+        if name == "e2e" and hasattr(cl, "build_tree"):
+            for n in (1 << 10, 1 << 12, 1 << 14, 1 << 15, 1 << 16, 1 << 17):
+                for split in (False, True):
+                    r, g, _ = lookup_timing(torch, tabs, q[:n], dev,
+                                            split=split, library=False)
+                    emit(kind="lookup_split", pkg=pkg, queries=n,
+                         split=split, ms=r["ms"],
+                         equal=bool(torch.equal(g, want[:, :n])))
+        del got, want, t
 
 
 def write_split_reads(paths, batch, seed=11):
@@ -557,10 +819,12 @@ def probe_edge_pair(rng, dtype, kind, device, shape=(64, 128)):
 
 
 def probe_cases(dev, rng):
-    """(probe, case, run, library or None, plain) for every one-call case
-    of the probes' mains (P1: probe_subint32's 18, P2: probe_lowprec's
-    30, P3: probe_bf16ops' 10, P4: probe_wordstream's 3 primitives), at
-    the tools' shapes, inputs drawn from rng as the mains draw them."""
+    """(probe, case, run, library or None, plain, work) for every one-call
+    case of the probes' mains (P1: probe_subint32's 18, P2:
+    probe_lowprec's 30, P3: probe_bf16ops' 10, P4: probe_wordstream's 3
+    primitives), at the tools' shapes, inputs drawn from rng as the mains
+    draw them; work is the case's (inputs, operations per output
+    element), as the mains give it to probes._common.Report.case."""
     from minialign_tpu_torch.probes import (_common, bf16ops, lowprec,
                                             subint32, wordstream)
     lib = _common.LIBRARY_BINOP
@@ -571,59 +835,74 @@ def probe_cases(dev, rng):
             cases.append(("p1", f"{dt} {op}",
                           partial(subint32.probe, op, x, y, dev),
                           partial(lib[op], x, y),
-                          partial(subint32.probe_plain, op, x, y)))
+                          partial(subint32.probe_plain, op, x, y),
+                          ((x, y), 1)))
         for op in subint32.CARRY_OPS:
             x, y = _common.inputs(rng, dt, dev, *subint32.RANGE)
             cases.append(("p1", f"carry {dt} {op}",
                           partial(subint32.probe_carry, op, x, y, dev), None,
-                          partial(subint32.probe_carry_plain, op, x, y)))
+                          partial(subint32.probe_carry_plain, op, x, y),
+                          ((x, y), subint32.ROUNDS)))
     for dt in lowprec.DTYPES:
         for op in lowprec.BINOPS:
             x, y = _common.inputs(rng, dt, dev)
             cases.append(("p2", f"{dt} {op}",
                           partial(lowprec.elementwise, op, x, y, dev),
                           partial(lib[op], x, y),
-                          partial(lowprec.elementwise_plain, op, x, y)))
+                          partial(lowprec.elementwise_plain, op, x, y),
+                          ((x, y), 1)))
         x, y = _common.inputs(rng, dt, dev)
         cases.append(("p2", f"{dt} max-in-carry",
                       partial(lowprec.in_carry, "maximum", x, y, dev), None,
-                      partial(lowprec.in_carry_plain, "maximum", x, y)))
+                      partial(lowprec.in_carry_plain, "maximum", x, y),
+                      ((x, y), lowprec.ROUNDS)))
         x, y = _common.inputs(rng, dt, dev)
         cases.append(("p2", f"{dt} roll-sel-in-carry",
                       partial(lowprec.roll_concat, x, y, dev), None,
-                      partial(lowprec.roll_concat_plain, x, y)))
+                      partial(lowprec.roll_concat_plain, x, y),
+                      ((x, y), 3 * lowprec.ROUNDS)))
     for op, name, dt in bf16ops.OPS:
         x, y = _common.inputs(rng, dt, dev)
         one = bf16ops.LIBRARY.get(op)
         cases.append(("p3", name, partial(bf16ops.run2, op, x, y, dev),
                       one and partial(one, x, y),
-                      partial(bf16ops.run2_plain, op, x, y)))
+                      partial(bf16ops.run2_plain, op, x, y),
+                      ((x, y), bf16ops.OP_COST[op])))
     shape = wordstream.SHAPE
     w = _common.tensor(rng.integers(0, 2**30, shape), "int32", dev)
     s = _common.tensor(rng.integers(0, 10, shape), "int32", dev)
     v = _common.tensor(rng.integers(0, 2**18, shape), "int32", dev)
-    for name, fn, args in (("var_shift", wordstream.var_shift, (w, s)),
-                           ("roll_in_carry", wordstream.roll_in_carry, (w,)),
-                           ("div10_magic", wordstream.div10_magic, (v,))):
+    for name, fn, args, ops in (
+            ("var_shift", wordstream.var_shift, (w, s), 3),
+            ("roll_in_carry", wordstream.roll_in_carry, (w,),
+             2 * wordstream.ROLL_ROUNDS),
+            ("div10_magic", wordstream.div10_magic, (v,), 3)):
         cases.append(("p4", name, partial(fn, *args, device=dev), None,
-                      partial(getattr(wordstream, f"{name}_plain"), *args)))
+                      partial(getattr(wordstream, f"{name}_plain"), *args),
+                      (args, ops)))
     return cases
 
 
 def probes_bench(torch, pkg, emit):
     """Emits each case of probe_cases (device and host-inclusive ms a
     call of the wrapper and of its one PyTorch call, the result held to
-    the plain twin), then the sums per probe over all its cases and over
-    the cases that have a PyTorch call."""
+    the plain twin, the case's bound), then the sums per probe over all
+    its cases and over the cases that have a PyTorch call (kernel_*,
+    library_*: device time and bound over the same cases)."""
     dev = torch.device("cuda", torch.cuda.current_device())
     sums = {}
-    for probe, case, run, library, plain in probe_cases(
+    from minialign_tpu_torch.probes._common import bound_ms
+    for probe, case, run, library, plain, (ins, ops) in probe_cases(
             dev, np.random.default_rng(0)):
         got = run()
         row = dict(kernel=probe, case=case,
                    equal=bool(torch.equal(got, plain())),
                    device_ms=device_ms(torch, run, calls=PROBE_CALLS),
-                   host_ms=timed(torch, run, 3, PROBE_CALLS)[1])
+                   host_ms=timed(torch, run, 3, PROBE_CALLS)[1],
+                   bound_ms=max(bound_ms(
+                       sum(x.numel() * x.element_size() for x in ins)
+                       + got.numel() * got.element_size(),
+                       got.numel() * ops)))
         if library is not None:
             library()
             row.update(library_device_ms=device_ms(torch, library,
@@ -632,15 +911,18 @@ def probes_bench(torch, pkg, emit):
                                              PROBE_CALLS)[1])
         emit(kind="probe", pkg=pkg, **row)
         s = sums.setdefault(probe, dict(
-            cases=0, equal=0, device_ms=0.0, host_ms=0.0, library_cases=0,
-            kernel_device_ms=0.0, kernel_host_ms=0.0, library_device_ms=0.0,
-            library_host_ms=0.0))
+            cases=0, equal=0, device_ms=0.0, host_ms=0.0, bound_ms=0.0,
+            library_cases=0, kernel_device_ms=0.0, kernel_host_ms=0.0,
+            library_device_ms=0.0, library_host_ms=0.0,
+            library_bound_ms=0.0))
         s["cases"] += 1
         s["equal"] += row["equal"]
         s["device_ms"] += row["device_ms"]
         s["host_ms"] += row["host_ms"]
+        s["bound_ms"] += row["bound_ms"]
         if library is not None:
             s["library_cases"] += 1
+            s["library_bound_ms"] += row["bound_ms"]
             s["kernel_device_ms"] += row["device_ms"]
             s["kernel_host_ms"] += row["host_ms"]
             s["library_device_ms"] += row["library_device_ms"]
@@ -793,7 +1075,31 @@ def card():
     return lines[0] if lines else "nvidia-smi gave nothing"
 
 
+def library_registers(lib, pattern):
+    """{kernel (mangled): registers a thread} of the kernels of the built
+    library `lib` whose name matches `pattern`, from cuobjdump
+    --dump-resource-usage (so a library built by an earlier process is
+    read too); {"error": ...} without cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return {"error": "no cuobjdump"}
+    r = subprocess.run([exe, "--dump-resource-usage", lib],
+                       capture_output=True, text=True, timeout=300)
+    out, fn = {}, None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function (\S+?):?\s*$", line)
+        if m:
+            fn = m.group(1) if re.search(pattern, m.group(1)) else None
+            continue
+        m = re.search(r"\bREG:(\d+)", line)
+        if m and fn:
+            out[fn] = int(m.group(1))
+            fn = None
+    return out or {"error": r.stderr[-500:] or "no kernel matched"}
+
+
 def kernels(torch, pkg, batches, reps, emit):
+    from minialign_tpu_torch import _build
     from minialign_tpu_torch.dp import band, cuda_fill, dtrace
     dev = torch.device("cuda")
     p = combined_scores(band.ScoreParams)
@@ -821,6 +1127,8 @@ def kernels(torch, pkg, batches, reps, emit):
              ns_per_step=ms_u * 1e6 / int(steps.max()),
              max_moves=int(moves.max()), moves=int(moves.sum()),
              ns_per_move=ms_w * 1e6 / max(int(moves.max()), 1))
+    emit(kind="registers", pkg=pkg, lib=_build.LIB,
+         **library_registers(_build.LIB, "fill_kernel"))
 
 
 def device_busy(trace_path):
@@ -1078,6 +1386,7 @@ def main(argv=None):
     ap.add_argument("--duo", default="1,0",
                     help="MINIALIGN_DUO settings of the --e2e maps, in order")
     ap.add_argument("--probes", action="store_true")
+    ap.add_argument("--lookup", action="store_true")
     ap.add_argument("--walls", default="",
                     help="CLI walls on the E2E workload: comma-separated "
                     "tN (-tN) and pN (MINIALIGN_PROC_WORKERS=N) items")
@@ -1102,6 +1411,8 @@ def main(argv=None):
         walls(root, pkg, o.walls.split(","), o.wall_reps, emit)
     if o.wall_split:
         wall_split([int(x) for x in o.wall_split.split(",")], emit)
+    if o.lookup:
+        lookup_bench(torch, pkg, emit)
     gather_bench(torch, pkg, E2E_GATHER, emit)
     batches = [int(x) for x in o.batches.split(",") if x]
     if batches:

@@ -23,8 +23,9 @@ import numpy as np
 import torch
 
 from ..dp import band
+from ..dp.cuda_gather import upload
 from ..params import ScoreParams
-from .cuda_lookup import lookup
+from .cuda_lookup import build_tree, lookup
 
 
 def make_mesh(n_devices: int | None = None,
@@ -121,39 +122,38 @@ def shard_index_arrays(keys: np.ndarray, offsets: np.ndarray,
 
 def place_shards(mesh, keys_sh, starts_sh, counts_sh):
     """shard_index_arrays' tables on the mesh: for each distinct device
-    (_groups order), one (n_d, K_pad) int64 tensor of the keys (their
-    uint64 bits), the starts and the counts of the shards it holds, so
-    that the shards sharing a device share one launch."""
+    (_groups order), the search tree (cuda_lookup.build_tree, built there
+    once) of the shards it holds, so that the shards sharing a device
+    share one launch."""
     keys_sh = np.ascontiguousarray(keys_sh, np.uint64).view(np.int64)
     out = []
     for d, ks in _groups(mesh):
-        out.append(tuple(torch.from_numpy(np.ascontiguousarray(
+        out.append(build_tree(*(torch.from_numpy(np.ascontiguousarray(
             np.asarray(x, np.int64)[ks])).to(d)
-            for x in (keys_sh, starts_sh, counts_sh)))
+            for x in (keys_sh, starts_sh, counts_sh))))
     return out
 
 
-def sharded_lookup(mesh, tables, q):
-    """Query hashes (replicated) against place_shards' tables: each
-    device's shards in one D3 launch (cuda_lookup.lookup), their hits
-    merged by a sum on the first device (each hash lives in exactly one
-    shard: the JAX psum). Returns (start, count), (Q,) int64 tensors on
-    the first device."""
+def sharded_lookup(mesh, tables, q) -> torch.Tensor:
+    """Query hashes (replicated) against place_shards' trees: each
+    device's shards in one D3 launch (cuda_lookup.lookup, which sums
+    them), the devices' hits merged by a sum on the first device (each
+    hash lives in exactly one shard: the JAX psum). Returns (2, Q)
+    int64, the starts then the counts, on the first device."""
     groups = _groups(mesh)
-    qh = torch.from_numpy(np.ascontiguousarray(q, np.uint64).view(np.int64))
-    st = cn = None
-    for (d, _), (keys, starts, counts) in zip(groups, tables):
-        s, c = lookup(keys, starts, counts, qh.to(d))
-        s, c = s.sum(0).to(groups[0][0]), c.sum(0).to(groups[0][0])
-        st, cn = (s, c) if st is None else (st + s, cn + c)
-    return st, cn
+    qh = np.ascontiguousarray(q, np.uint64).view(np.int64)
+    out = None
+    for (d, _), tree in zip(groups, tables):
+        r = lookup(tree, upload(qh, d))
+        out = r if out is None else out + r.to(groups[0][0])
+    return out
 
 
 def make_sharded_lookup(mesh):
     """The JAX package's contract: fn(keys_sh, starts_sh, counts_sh, q)
     on shard_index_arrays' tables, placed on the mesh at each call."""
-    return lambda keys_sh, starts_sh, counts_sh, q: sharded_lookup(
-        mesh, place_shards(mesh, keys_sh, starts_sh, counts_sh), q)
+    return lambda keys_sh, starts_sh, counts_sh, q: tuple(sharded_lookup(
+        mesh, place_shards(mesh, keys_sh, starts_sh, counts_sh), q))
 
 
 # ---------------------------------------------------------------------------
@@ -237,8 +237,8 @@ class ShardedIndex:
         h = np.asarray(h, np.uint64)
         if len(h) == 0:
             return (np.empty(0, np.int64), np.empty(0, np.int64))
-        st, cn = sharded_lookup(self.mesh, self._tables, h)
-        return st.cpu().numpy(), cn.cpu().numpy()
+        out = sharded_lookup(self.mesh, self._tables, h).cpu().numpy()
+        return out[0], out[1]
 
 
 def align_batch_sharded(mp, mi, reads, mesh, base_qid: int = 0,

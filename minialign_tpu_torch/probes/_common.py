@@ -308,8 +308,11 @@ class Report:
     beside it. Kernel and library are timed alike, each as device time
     (device_ms) and as host-inclusive time a call (the mean over WINDOW
     warm calls between CUDA events), wrapper overhead included in the
-    latter. The device is resolved once, with its index, so the probes'
-    wrappers find the report's tensors already in place."""
+    latter. The sums over the cases that have a library call (the
+    library_* stats, library_bound_ms among them) cover the same cases,
+    so their kernel time and bound compare. The device is resolved
+    once, with its index, so the probes' wrappers find the report's
+    tensors already in place."""
 
     CHECK_STEPS = (64, 2048)   # loops are compared at these step counts
     WINDOW = 20                # calls a timed window of a compared case
@@ -363,7 +366,8 @@ class Report:
             max_abs_err=0.0, ms=0.0, device_ms=dev0, plain_ms=0.0,
             compared=0, bound_bytes_ms=0.0, bound_ops_ms=0.0, bound_ms=0.0,
             library_ms=0.0, library_device_ms=dev0, library_kernel_ms=0.0,
-            library_kernel_device_ms=dev0, library_cases=0))
+            library_kernel_device_ms=dev0, library_bound_ms=0.0,
+            library_cases=0))
         st["max_abs_err"] = max(st["max_abs_err"], max_abs_err(got, want))
         st["ms"] += ms
         st["plain_ms"] += pms
@@ -384,6 +388,7 @@ class Report:
             ldms = self._device_ms(library)
             st["library_ms"] += lms
             st["library_kernel_ms"] += ms
+            st["library_bound_ms"] += max(tb, to)
             st["library_cases"] += 1
             if self.cuda:
                 st["library_device_ms"] += ldms
@@ -414,7 +419,8 @@ class Report:
                 line += (f"; on its {n} one-call cases kernel "
                          f"{show_ms(kd)} against {show_ms(ld)} device "
                          f"({kd / ld:.2f}x), {kh:.5f} against {lh:.5f} ms a "
-                         f"call host ({kh / lh:.2f}x)")
+                         f"call host ({kh / lh:.2f}x), bound "
+                         f"{st['library_bound_ms']:.6f} ms")
             self.say(line)
 
     def case(self, name: str, kernel: str, run: Callable[[], torch.Tensor],

@@ -248,25 +248,34 @@ def test_cli_golden_on_cuda(name, dev, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("B", [1, 48, 512])
 def test_duo_window_kernel_matches_plain(B, dev):
-    """kbench.duo_geometry's edge cases (failed downs, clipped tp, both
-    caps, cp at 0, bases past 2^31), the geometry read from behind a
+    """The duo window in the untraced fill's epilogue, on
+    kbench.duo_fill_case (failed downs, duo_geometry's edge geometry,
+    reads and references past 262 kb), the geometry read from behind a
     down descriptor block as the engine uploads it, the down rows
-    written into the rows of a summary buffer."""
-    c = kbench.duo_geometry(seed=B, B=B)
+    written into the rows of a summary buffer: the fill's results equal
+    fill_plain's, the descriptor block and down rows duo_window_plain's
+    on them; one fill launch, counted as one duo launch too."""
+    ab, alen, bb, blen, c = kbench.duo_fill_case(band, B, B)
     g = duo.pack_geom(c["rvbase"], c["qub"], c["rlen"], c["qlen"], c["cp0"],
                       c["cp1"])
     blk = torch.from_numpy(np.concatenate(
         [np.full(cuda_gather.WORDS * 2 * B, -3, np.int32), g])).to(dev)
     geom = blk[cuda_gather.WORDS * 2 * B:]
-    t = [torch.as_tensor(c[k], dtype=torch.int32, device=dev)
-         for k in ("score", "mi", "mj")]
+    args = [torch.from_numpy(x).to(dev) for x in (ab, alen, bb, blen)]
+    nb = band.max_blocks_for(alen, blen)
+    p = PARAMS["affine"]
     summ = torch.full((17, B), -1, dtype=torch.int32, device=dev)
     _build.reset_counts()
-    desc, _ = duo.duo_window(*t, geom, out=summ[14:])
-    assert _build.LAUNCHES["duo"] == 1
-    want, dsum = duo.duo_window_plain(*t, geom)
-    assert torch.equal(desc, want) and torch.equal(summ[14:], dsum)
+    res, desc = band.fill(p, 64, nb, False, *args, duo=(geom, summ[14:]))
+    assert _build.LAUNCHES["duo"] == _build.LAUNCHES["fill"] == 1
+    want = band.fill_plain(p, 64, nb, False, *args)
+    assert_fill_equal(res, None, want, None)
+    wdesc, dsum = duo.duo_window_plain(want.max_score, want.max_i,
+                                       want.max_j, geom)
+    assert torch.equal(desc, wdesc) and torch.equal(summ[14:], dsum)
     assert (summ[:14] == -1).all()
+    if B > 2:
+        assert (want.max_score[:2] == 0).all()
 
 
 def _mapped(regs):
@@ -452,21 +461,38 @@ def test_probe_wrapper_takes_string_device_and_other_inputs(dev):
 def test_lookup_kernel_matches_plain(kind, n, dev):
     """kbench.LOOKUP_KINDS's tables split n ways: hashes past 2^63, the
     pad value, misses below and above, K = 0, unequal fill; one launch,
-    word for word."""
+    word for word with lookup_plain's rows summed."""
     from minialign_tpu_torch.index.build import build_index
     from minialign_tpu_torch.params import IndexParams
     from minialign_tpu_torch.parallel import cuda_lookup, shard
     keys, off = kbench.lookup_table(kind, build_index, IndexParams)
-    t = kbench.lookup_tensors(torch, shard.shard_index_arrays(keys, off, n),
-                              kbench.lookup_queries(keys), dev)
+    *t, q = kbench.lookup_tensors(
+        torch, shard.shard_index_arrays(keys, off, n),
+        kbench.lookup_queries(keys), dev)
+    tree = cuda_lookup.build_tree(*t)
     _build.reset_counts()
-    got = cuda_lookup.lookup(*t)
+    got = cuda_lookup.lookup(tree, q)
     assert _build.LAUNCHES["lookup"] == 1
-    want = cuda_lookup.lookup_plain(*t)
-    assert all(map(torch.equal, got, want))
-    empty = cuda_lookup.lookup(*t[:3], t[3][:0])
-    assert [x.shape for x in empty] == [(n, 0)] * 2
+    assert torch.equal(got, cuda_lookup.lookup_sum_plain(*t, q))
+    assert cuda_lookup.lookup(tree, q[:0]).shape == (2, 0)
     assert _build.LAUNCHES["lookup"] == 1
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("K", kbench.LOOKUP_EDGE_K)
+def test_lookup_kernel_on_edge_sizes(K, split, dev):
+    """Shards of K keys (part pad and all pad) at 1, 2 and 8 shards (the
+    top levels in shared memory: all of them, or at K = 4097 at 2 and 8
+    shards one of two), the levels read whole or by sectors: word for
+    word with lookup_plain's rows summed, on the tables themselves."""
+    from minialign_tpu_torch.parallel import cuda_lookup
+    for n in (1, 2, 8):
+        tabs = kbench.lookup_edge_tables(K, n, seed=K * 10 + n)
+        *t, q = kbench.lookup_tensors(
+            torch, tabs, kbench.lookup_edge_queries(tabs[0]), dev)
+        tree = cuda_lookup.build_tree(*t)
+        got = cuda_lookup.lookup(tree, q, split)
+        assert torch.equal(got, cuda_lookup.lookup_sum_plain(*t, q)), n
 
 
 def _tref_reads(n, seed):

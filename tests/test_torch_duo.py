@@ -1,12 +1,13 @@
 """The port's fused down+up "duo" (dp/duo.py and FillEngine's duo batch)
 against the JAX package, on the CPU (the plain gather, fill, walk and
-duo_window). Every comparison is exact.
+duo_window_plain). Every comparison is exact.
 
   1. duo_window_plain against a numpy transcription of the up-window
      arithmetic of minialign_tpu/extend.py:710-722 and against the up
      requests that the JAX engine's _duo_slow (:826-845) makes, on edge
      geometry: failed downs, clipped tp, lna_u capped by tp0 or not, cp
-     at 0, int64 bases past 2^31;
+     at 0, int64 bases past 2^31; band.fill with a duo geometry (the
+     kernel's epilogue on the card) against fill, then duo_window_plain;
   2. the engine's duo requests against the JAX engine's _duo_slow on the
      same stores (XLA fill, host traceback);
   3. against the same requests sent as down, then up (MINIALIGN_DUO=0's
@@ -99,7 +100,7 @@ def _plain_window(c):
                                           c["qlen"], c["cp0"], c["cp1"]))
     t = [torch.as_tensor(c[k], dtype=torch.int32)
          for k in ("score", "mi", "mj")]
-    return duo.duo_window(*t, geom)
+    return duo.duo_window_plain(*t, geom)
 
 
 def test_duo_window_plain_matches_jax_arithmetic():
@@ -154,12 +155,53 @@ def test_duo_window_keeps_out_rows_and_refuses_other_devices():
                                           c["qlen"], c["cp0"], c["cp1"]))
     t = [torch.as_tensor(c[k], dtype=torch.int32)
          for k in ("score", "mi", "mj")]
-    _, dsum = duo.duo_window(*t, geom, out=out[14:])
+    _, dsum = duo.duo_window_plain(*t, geom, out=out[14:])
     assert dsum.data_ptr() == out[14].data_ptr()
     assert torch.equal(out[14:], torch.stack(t))
     assert (out[:14] == -1).all()
+    # the window runs in the down fill (band.fill's duo epilogue): a
+    # device without a fill, or a traced fill, is refused
+    a, alen = (torch.from_numpy(x) for x in band.pad_codes(
+        [np.zeros(16, np.int8)] * 16))
+    p = tparams.MapParams().score
     with pytest.raises(ValueError, match="device"):
-        duo.duo_window(*(x.to("meta") for x in t), geom.to("meta"))
+        band.fill(p, 16, 2, False, *(x.to("meta") for x in (a, alen, a, alen)),
+                  duo=(geom.to("meta"), out[14:].to("meta")))
+    with pytest.raises(ValueError, match="untraced"):
+        band.fill(p, 16, 2, True, a, alen, a, alen, duo=(geom, out[14:]))
+
+
+def _duo_fill_case(W, B=12, seed=2):
+    """B down problems of ~300 bases at W (the first two empty, so their
+    downs fail) and duo_geometry's edge geometry behind them."""
+    ab, alen, bb, blen = kbench.pairs(band, seed, B, 300)
+    ab[:2], alen[:2] = band.NCODE, 0
+    c = kbench.duo_geometry(seed, B)
+    geom = torch.from_numpy(duo.pack_geom(c["rvbase"], c["qub"], c["rlen"],
+                                          c["qlen"], c["cp0"], c["cp1"]))
+    nb = band.max_blocks_for(alen, blen)
+    return [torch.from_numpy(x) for x in (ab, alen, bb, blen)], nb, geom
+
+
+@pytest.mark.parametrize("W", [16, 32, 64])
+def test_fill_duo_equals_fill_then_window(W):
+    """band.fill(..., duo=(geom, out)) on the CPU: the FillResult of the
+    plain fill, the up descriptor block and down rows of
+    duo_window_plain on it, the rows written into `out` and nothing
+    else of the summary touched."""
+    args, nb, geom = _duo_fill_case(W)
+    p = tparams.MapParams().score
+    summ = torch.full((17, 12), -1, dtype=torch.int32)
+    res, desc = band.fill(p, W, nb, False, *args, duo=(geom, summ[14:]))
+    want = band.fill(p, W, nb, False, *args)
+    for f in band.FillResult._fields:
+        assert torch.equal(getattr(res, f), getattr(want, f)), f
+    wdesc, wsum = duo.duo_window_plain(want.max_score, want.max_i,
+                                       want.max_j, geom)
+    assert torch.equal(desc, wdesc) and torch.equal(summ[14:], wsum)
+    assert (summ[:14] == -1).all()
+    assert (want.max_score[:2] == 0).all() and (want.max_score[2:] > 0).any()
+    assert not desc_fields(desc)["elen"][[0, 1, 12, 13]].any()
 
 
 # ---- 2-6: the engine
@@ -401,9 +443,9 @@ def test_one_summary_read_back_per_duo_batch(engine, reads, genome,
     log = []
     host, fill = extend._host, extend.fill
 
-    def fill_logged(p, W, nb, trace, *args):
+    def fill_logged(p, W, nb, trace, *args, **kw):
         log.append(("fill", trace))
-        return fill(p, W, nb, trace, *args)
+        return fill(p, W, nb, trace, *args, **kw)
 
     def host_logged(t):
         log.append(("read", tuple(t.shape)))

@@ -205,3 +205,43 @@ def test_report_times_run_and_library_alike():
     assert "kernel not measured device" in times.line()
     rep.summary()
     assert "not measured" in rep.out.getvalue()
+
+
+def test_report_sums_the_bound_over_the_library_cases():
+    """library_bound_ms sums the bound of the cases that have a PyTorch
+    call and only of those, as library_kernel_device_ms sums their
+    device time, so that the two cover the same cases; bound_ms sums
+    every compared case."""
+    from minialign_tpu_torch.probes._common import Report, bound_ms
+    rep = Report(device="cpu", out=io.StringIO())
+    x = torch.arange(64, dtype=torch.int32)
+    y = torch.arange(256, dtype=torch.int32)
+    rep._compare("p3", lambda: x + x, lambda: x + x, ((x, x), 2),
+                 lambda: torch.add(x, x))
+    rep._compare("p3", lambda: y * 2, lambda: y * 2, ((y,), 7))
+    st = rep.stats["p3"]
+    one = max(bound_ms(3 * 64 * 4, 64 * 2))
+    other = max(bound_ms(2 * 256 * 4, 256 * 7))
+    assert st["library_cases"] == 1 and st["compared"] == 2
+    assert st["library_bound_ms"] == pytest.approx(one, rel=1e-12)
+    assert st["bound_ms"] == pytest.approx(one + other, rel=1e-12)
+
+
+def test_kbench_probe_cases_carry_their_work():
+    """kbench.probe_cases gives every one-call case its work as the
+    probes' mains give it (inputs, operations per element), so that
+    kbench --probes sums the bound over the cases it times; the cases
+    with a PyTorch call are P1's 12, P2's 20 and P3's 4."""
+    from minialign_tpu_torch import kbench
+    from minialign_tpu_torch.probes._common import bound_ms
+    cases = kbench.probe_cases(torch.device("cpu"),
+                               np.random.default_rng(0))
+    n_lib = {}
+    for probe, name, run, library, plain, (ins, ops) in cases:
+        assert all(isinstance(t, torch.Tensor) for t in ins) and ops >= 1
+        out = plain()
+        assert max(bound_ms(sum(t.numel() * t.element_size() for t in ins)
+                            + out.numel() * out.element_size(),
+                            out.numel() * ops)) > 0
+        n_lib[probe] = n_lib.get(probe, 0) + (library is not None)
+    assert n_lib == {"p1": 12, "p2": 20, "p3": 4, "p4": 0}

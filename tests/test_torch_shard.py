@@ -114,13 +114,16 @@ def test_lookup_takes_the_cpu_path_and_refuses_other_devices():
     *tabs, q = kbench.lookup_tensors(
         torch, shard.shard_index_arrays(keys, off, 2),
         kbench.lookup_queries(keys), "cpu")
-    got = cuda_lookup.lookup(*tabs, q)
-    want = cuda_lookup.lookup_plain(*tabs, q)
-    assert all(map(torch.equal, got, want))
+    got = cuda_lookup.lookup(cuda_lookup.build_tree(*tabs), q)
+    st, cn = cuda_lookup.lookup_plain(*tabs, q)
+    assert torch.equal(got, torch.stack([st.sum(0), cn.sum(0)]))
     with pytest.raises(ValueError, match="no lookup"):
-        cuda_lookup.lookup(*(t.to("meta") for t in tabs), q.to("meta"))
+        cuda_lookup.lookup(cuda_lookup.build_tree(
+            *(t.to("meta") for t in tabs)), q.to("meta"))
     with pytest.raises(ValueError, match="int64"):
-        cuda_lookup.lookup(tabs[0].int(), *tabs[1:], q)
+        cuda_lookup.build_tree(tabs[0].int(), *tabs[1:])
+    with pytest.raises(ValueError, match="int64"):
+        cuda_lookup.lookup(cuda_lookup.build_tree(*tabs), q.int())
 
 
 @pytest.mark.parametrize("k", [15, 19])
