@@ -48,8 +48,11 @@ Phases, in order; any failure exits non-zero before the result line:
      timed as device time and as a call's host time beside its one
      PyTorch call, ns/step at the tools' own counts (the step timer also
      at 2^17 steps); then P1 and P2 on kbench's edge inputs (the types'
-     ends, an odd size, misaligned views), and the step timer at B=128
-     and 1024, int16 also from inputs whose adds wrap
+     ends, an odd size, misaligned views), the step timer at B=128
+     and 1024, int16 also from inputs whose adds wrap, and P3's timing
+     loop and P4's stream and roll on theirs (the types' ends, B and C
+     1 / 33 / 128, steps around the stream's 7-step pass, directions
+     outside [0, 7), words with the sign bit set, 0-65 rounds)
   9  the parallel paths (minialign_tpu_torch.parallel): (a) the D3
      lookup kernel (the search tree, cuda_lookup.build_tree) == the sum
      of lookup_plain's rows on the tables themselves, word for word, on
@@ -1079,6 +1082,43 @@ def main():
             f"(kernel equal to plain at 64 and {n} steps at B 128 and 1024"
             f"{', and from inputs that wrap' if dt == 'int16' else ''}; at "
             f"{n} steps kernel {ms:.3f} ms, plain {pms:.1f} ms) on {card}")
+
+    # P3's timing loop and P4's stream and roll on their edge inputs
+    from minialign_tpu_torch.probes import bf16ops, wordstream
+    from minialign_tpu_torch.probes._common import tensor
+    rng = np.random.default_rng(8)
+    n_edge = 0
+    for dt in kbench.P3_EDGE_DTYPES:
+        for B in kbench.LOOP_EDGE_C:
+            x = kbench.timing_edge_input(rng, dt, B, dev)
+            for n in kbench.LOOP_EDGE_STEPS:
+                if not torch.equal(bf16ops.timing_loop(x, n, dev),
+                                   bf16ops.timing_plain(x, n)):
+                    fail(f"P3 timing {dt} B={B} {n} steps at the type's "
+                         f"ends: kernel != plain")
+                n_edge += 1
+    for C in kbench.LOOP_EDGE_C:
+        for kind in kbench.STREAM_D_KINDS:
+            wa, wb, d = kbench.stream_edge_case(rng, C, kind, dev)
+            for n in kbench.LOOP_EDGE_STEPS:
+                if not torch.equal(
+                        wordstream.stream_loop(wa, wb, d, n, dev),
+                        wordstream.stream_timing_plain(wa, wb, d, n)):
+                    fail(f"P4 stream C={C} d {kind} {n} steps: kernel != "
+                         f"plain")
+                n_edge += 1
+        w = tensor(rng.integers(-2**31, 2**31, (8, C)), "int32", dev)
+        for rounds in kbench.ROLL_EDGE_ROUNDS:
+            if not torch.equal(wordstream.roll_in_carry(w, dev, rounds),
+                               wordstream.roll_in_carry_plain(w, rounds)):
+                fail(f"P4 roll_in_carry C={C} {rounds} rounds: kernel != "
+                     f"plain")
+            n_edge += 1
+    say(f"[7] P3's loop and P4's stream and roll equal to plain on {n_edge} "
+        f"edge runs: {', '.join(kbench.P3_EDGE_DTYPES)} at their ends, "
+        f"B and C {kbench.LOOP_EDGE_C}, steps {kbench.LOOP_EDGE_STEPS}, "
+        f"directions {', '.join(kbench.STREAM_D_KINDS)}, rounds "
+        f"{kbench.ROLL_EDGE_ROUNDS}")
 
     # ---- 9: the parallel paths
     launches["lookup"] = phase9(np, torch, card, stats, ref_fa, reads_fq)

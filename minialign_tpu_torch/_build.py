@@ -44,9 +44,10 @@ FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 # the mapper's kernels ("duo": the fill's duo epilogue, counted once a
 # fused launch), the sharded index's lookup (parallel/), then the step-mix
-# probes P1-P4 (probes/)
+# probes P1-P4 (probes/), and the probes' launch floor, an empty kernel
+# (probes/_common.launch_floor: kbench.py only)
 LAUNCHES = {"fill": 0, "gather": 0, "dtrace": 0, "duo": 0, "lookup": 0,
-            "p1": 0, "p2": 0, "p3": 0, "p4": 0}
+            "p1": 0, "p2": 0, "p3": 0, "p4": 0, "noop": 0}
 TRACED_FILL_B: list[int] = []
 GATHER_SHAPES: list[tuple[int, int, int, int]] = []   # (Ba, Bb, La, Lb)
 BUILD_LOG = ""        # nvcc's output of the last build (ptxas -v lines)
@@ -79,6 +80,7 @@ _SIGS = {
     "p4_div10_launch": [_P, _I, _P, _I, _P],
     "p4_roll_in_carry_launch": [_P, _I, _I, _P, _I, _P],
     "p4_stream_launch": [_P, _P, _P, _I, _I, _P, _I, _P],
+    "probe_noop_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
 }
 
 

@@ -10,14 +10,27 @@
 // row r + 1 (0 past the last row), the broadcast-row multiply reads
 // b[0, col]. Launch-bound at the probe's shape.
 //
-// timing: the fill's layout (fill.cu), one warp per column of W = 64
-// rows, rows t and t + 32 on thread t, the 6 arrays in registers for the
-// whole loop. A step is, for each array a (old values throughout):
-//   a <- max(max(a + 1, arrs[5]) - 1, arrs[0] - 1)
-// with max(a + 1, b) as the DPX __viaddmax_s32 for int32. There is no
-// roll, so a step is 12 independent chains of three dependent ops per
-// thread; at B = 128 (32 blocks, one warp per scheduler on 32 SMs) what
-// bounds it is one warp's issue of those ~36 ops a step.
+// timing: a step is, for each of the 6 arrays a (old values throughout):
+//   a <- max(max(a + 1, arrs[5]) - 1, arrs[0] - 1).
+// Rows never mix, so every (row, column) element is a chain of its own:
+// 6 values whose step is 6 add-max-sub-max groups and one sub, with
+// three dependent ops from a step to the next. What bounds it is one
+// warp's issue of those ops a step: the whole (64, B) array is only
+// 64 B values, too few warps to fill the card, so the design spreads
+// them to at most one warp a scheduler and gives each as few
+// instructions a step as the types allow.
+//   - int32, float32: one element a thread, 64 threads a block (B blocks:
+//     128 at the tools' B, one an SM). int32 issues each max(x + b, c) as
+//     one DPX VIADDMNMX (__viaddmax_s32): the add and the first max, then
+//     the sub (+ -1) and the second max, two instructions an array a step;
+//     float32 issues FADD, FMNMX, FADD, FMNMX.
+//   - 16- and 8-bit types: rows t and t + 32 of a column in one word on
+//     thread t (probe_common.cuh:Pair), one warp a column, each op on
+//     both rows at once: bf16 __hadd2 / __hmax2, int16 the DPX
+//     __viaddmax_s16x2 (add and max in one instruction, wrapping per
+//     lane), int8 / uint8 the byte ops.
+// The sub is an add of -1 in every type: the same result, bit for bit
+// (IEEE defines a - b as a + (-b); the integers wrap alike).
 
 #include "probe_common.cuh"
 
@@ -25,7 +38,7 @@ namespace {
 
 using namespace probe;
 
-constexpr int WARPS = 4;  // columns per block
+constexpr int W = 64;     // rows of the timing loop's arrays
 constexpr int N_ARR = 6;  // the tool's main: timing(dt, 6, steps)
 
 template <typename T>
@@ -69,38 +82,54 @@ run2_kernel(const T* __restrict__ x, const T* __restrict__ y, int R, int C,
   out[i] = run2_op(op, x, y, R, C, i);
 }
 
+// One (row, column) element a thread, the (64, B) array flat.
 template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
-timing_kernel(const T* __restrict__ x, int B, int steps,
+__global__ void __launch_bounds__(W)
+timing_kernel(const T* __restrict__ x, int n, int steps,
               float* __restrict__ out) {
-  const int t = threadIdx.x & 31;
-  const int col = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (col >= B) return;
-  const T x0 = x[t * B + col], x1 = x[(t + 32) * B + col];
-  T lo[N_ARR], hi[N_ARR];
+  const int i = blockIdx.x * W + threadIdx.x;
+  if (i >= n) return;
+  const T x0 = x[i];
+  T a[N_ARR];
 #pragma unroll
-  for (int k = 0; k < N_ARR; ++k) {
-    lo[k] = add(x0, from_int<T>(k % 3));
-    hi[k] = add(x1, from_int<T>(k % 3));
-  }
-  const T one = from_int<T>(1);
-  for (int i = 0; i < steps; ++i) {
-    const T p0 = lo[N_ARR - 1], p1 = hi[N_ARR - 1];
-    const T f0 = sub(lo[0], one), f1 = sub(hi[0], one);
+  for (int k = 0; k < N_ARR; ++k) a[k] = add(x0, from_int<T>(k % 3));
+  const T one = from_int<T>(1), minus_one = from_int<T>(-1);
+  for (int s = 0; s < steps; ++s) {
+    const T p = a[N_ARR - 1], f = add(a[0], minus_one);
 #pragma unroll
-    for (int k = 0; k < N_ARR; ++k) {
-      lo[k] = vmax(sub(addmax(lo[k], one, p0), one), f0);
-      hi[k] = vmax(sub(addmax(hi[k], one, p1), one), f1);
-    }
+    for (int k = 0; k < N_ARR; ++k)
+      a[k] = addmax(addmax(a[k], one, p), minus_one, f);
   }
-  T a = lo[0], b = hi[0];
+  T m = a[0];
 #pragma unroll
-  for (int k = 1; k < N_ARR; ++k) {
-    a = vmax(a, lo[k]);
-    b = vmax(b, hi[k]);
+  for (int k = 1; k < N_ARR; ++k) m = vmax(m, a[k]);
+  out[i] = to_f32(m);
+}
+
+// Rows t and t + 32 of column blockIdx.x in one word on thread t.
+template <typename T>
+__global__ void __launch_bounds__(32)
+timing_pair_kernel(const T* __restrict__ x, int B, int steps,
+                   float* __restrict__ out) {
+  using L = Lanes<T>;
+  const int t = threadIdx.x;
+  const int col = blockIdx.x;
+  const uint32_t x2 = Pair<T>::pack(x[t * B + col], x[(t + 32) * B + col]);
+  uint32_t a[N_ARR];
+#pragma unroll
+  for (int k = 0; k < N_ARR; ++k) a[k] = L::add(x2, Pair<T>::splat(k % 3));
+  const uint32_t one = Pair<T>::splat(1), minus_one = Pair<T>::splat(-1);
+  for (int s = 0; s < steps; ++s) {
+    const uint32_t p = a[N_ARR - 1], f = L::add(a[0], minus_one);
+#pragma unroll
+    for (int k = 0; k < N_ARR; ++k)
+      a[k] = addmax_pair<T>(addmax_pair<T>(a[k], one, p), minus_one, f);
   }
-  out[t * B + col] = to_f32(a);
-  out[(t + 32) * B + col] = to_f32(b);
+  uint32_t m = a[0];
+#pragma unroll
+  for (int k = 1; k < N_ARR; ++k) m = L::max(m, a[k]);
+  out[t * B + col] = L::f32(m, 0);
+  out[(t + 32) * B + col] = L::f32(m, Pair<T>::HI);
 }
 
 }  // namespace
@@ -123,16 +152,21 @@ extern "C" int p3_run2_launch(const void* x, const void* y, int R, int C,
   return (int)cudaGetLastError();
 }
 
-// x: (64, B) of the dtype; out (64, B) float32.
+// x: (64, B) of the dtype; out (64, B) float32. 32-bit types one element
+// a thread, the others in packed pairs.
 extern "C" int p3_timing_launch(const void* x, int B, int dtype, int steps,
                                 void* out, int device, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   const DeviceGuard on(device);
   const bool ok = dispatch(dtype, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    timing_kernel<T><<<(B + WARPS - 1) / WARPS, WARPS * 32, 0,
-                       as_stream(stream)>>>(
-        static_cast<const T*>(x), B, steps, static_cast<float*>(out));
+    const T* xt = static_cast<const T*>(x);
+    float* o = static_cast<float*>(out);
+    if constexpr (sizeof(T) == 4)
+      timing_kernel<T><<<B, W, 0, as_stream(stream)>>>(xt, W * B, steps, o);
+    else
+      timing_pair_kernel<T><<<B, 32, 0, as_stream(stream)>>>(xt, B, steps,
+                                                             o);
   });
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

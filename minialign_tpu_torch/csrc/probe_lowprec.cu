@@ -47,23 +47,6 @@ using namespace probe;
 constexpr int WARPS = 4;  // columns per block
 constexpr int N_ARR = 4;  // probe_lowprec.step_timer's n_arr
 
-// Rows t and t + 32 of one column in one 32-bit word on thread t: row t
-// in the low half, row t + 32 in the high half. A 16-bit type fills its
-// half (Lanes<T> lanes 0 and 1); int8 sits in the low byte of each half
-// (Lanes<int8_t> lanes 0 and 2), the high bytes staying 0 under the byte
-// ops and the roll.
-template <typename T>
-struct Pair {
-  static constexpr int HI = Lanes<T>::N / 2;  // Lanes' lane of row t + 32
-  static constexpr uint32_t MASK = sizeof(T) == 1 ? 0xffu : 0xffffu;
-  static __device__ __forceinline__ uint32_t pack(T lo, T hi) {
-    return (to_bits(lo) & MASK) | (to_bits(hi) & MASK) << 16;
-  }
-  static __device__ __forceinline__ uint32_t splat(int v) {
-    return pack(from_int<T>(v), from_int<T>(v));
-  }
-};
-
 // roll_up on packed words: thread t takes thread t + 1's word (rows t + 1
 // and t + 33); thread 31 takes row 32, thread 0's high half, into its low
 // half and 0 (row 64) above.
@@ -71,17 +54,6 @@ __device__ __forceinline__ uint32_t roll_up_pair(uint32_t w, int t) {
   const uint32_t down = __shfl_down_sync(FULL, w, 1);
   const uint32_t top = __shfl_sync(FULL, w, 0);
   return t == 31 ? __byte_perm(top, 0, 0x4432) : down;
-}
-
-// max(a + one, c) on both lanes, the add wrapping per lane: int16 by the
-// DPX __viaddmax_s16x2, bf16 by __hadd2 then __hmax2.
-template <typename T>
-__device__ __forceinline__ uint32_t addmax_pair(uint32_t a, uint32_t one,
-                                                uint32_t c) {
-  if constexpr (std::is_same<T, int16_t>::value)
-    return __viaddmax_s16x2(a, one, c);
-  else
-    return Lanes<T>::max(Lanes<T>::add(a, one), c);
 }
 
 // The packed kernels run one warp a block, column blockIdx.x: the

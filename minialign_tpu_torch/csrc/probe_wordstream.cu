@@ -11,12 +11,27 @@
 // is undefined in C++, so the multiply is done in uint32 and read back as
 // int32 (the wrap the TPU's int32 multiply gives); >> is arithmetic.
 //
-// roll_in_carry, stream_timing: one thread per column; the column's 8
-// words sit in registers, and the row roll (row r <- row r + 1 mod 8,
-// pltpu.roll(slab, 7, 0)) is a register rotation under the column's
-// predicate. What bounds stream_timing: the per-step dependent chain
-// (shift, mask, add, compare, rotate) of one thread; the 128 columns
-// are one block, one warp per scheduler of one SM.
+// roll_in_carry, stream_timing: the row roll (row r <- row r + 1 mod 8,
+// pltpu.roll(slab, 7, 0)) is a row pointer, not a move of the 8 words.
+// roll_in_carry carries the pointer and the shift through its rounds, one
+// thread a column, and reads each output row's word at the end.
+// stream_timing is a true recurrence of C columns, two streams each, far
+// from the card's operation rate at C = 128 (8 warps): what bounds it is
+// one stream's step on one warp. So a stream gets a lane of its own (lane
+// 2c stream a, lane 2c + 1 stream b of column c), with its own half of
+// the sum, joined by one shuffle after the loop; blocks of one warp (16
+// columns), at most one warp a scheduler. A step of a lane is the read
+// (cur >> sh) & 7, the sum's add, the shift's add, the wrap compare and
+// two selects, about 8 instructions with the pass's end, issued at the
+// integer pipe's half rate; the chain from one step to the next (the
+// shift's add or compare, then its select) is shorter. The current word
+// sits in a register, the slab in shared memory; the loop runs 7 steps a
+// pass, the pass's 7 advances (3 or 0: d[col] > i % 7 moves stream b,
+// else stream a) computed once before the loop, then the steps % 7 left. A pass holds at most one wrap (a wrap
+// needs 10 advances of 3 to reach 30 from 0, a pass has 7), seen at its
+// end from the shift, and a wrap there moves the pointer and takes the
+// word two rows on from shared memory: that load has a pass or more
+// before its word is read, and the next word is always in a register.
 
 #include "probe_common.cuh"
 
@@ -25,19 +40,14 @@ namespace {
 using namespace probe;
 
 constexpr int R = 8;  // slab rows
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;      // var_shift, div10: a value a thread
+constexpr int LOOP_THREADS = 32;  // roll_in_carry, stream: one warp a block
 
 // x >> s with s taken as unsigned and clamped to 31 (sign fill past the
-// width, as XLA's shift_right_arithmetic)
+// width, as XLA's shift_right_arithmetic): var_shift's amounts come from
+// its input
 __device__ __forceinline__ int32_t sra(int32_t x, int32_t s) {
   return x >> ((uint32_t)s > 31u ? 31 : s);
-}
-
-__device__ __forceinline__ void rotate_if(int32_t (&s)[R], bool p) {
-  const int32_t s0 = s[0];
-#pragma unroll
-  for (int r = 0; r < R - 1; ++r) s[r] = p ? s[r + 1] : s[r];
-  s[R - 1] = p ? s0 : s[R - 1];
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -56,56 +66,87 @@ div10_kernel(const int32_t* __restrict__ x, int n,
   out[i] = (int32_t)((uint32_t)(x[i] >> 1) * 52429u) >> 18;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(LOOP_THREADS)
 roll_in_carry_kernel(const int32_t* __restrict__ w, int C, int rounds,
                      int32_t* __restrict__ out) {
-  const int col = blockIdx.x * THREADS + threadIdx.x;
+  const int col = blockIdx.x * LOOP_THREADS + threadIdx.x;
   if (col >= C) return;
-  int32_t s[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) s[r] = w[r * C + col];
-  int32_t sh = 0;
+  int r = 0, sh = 0;  // rows rolled, shift
   for (int i = 0; i < rounds; ++i) {
     const bool wrap = sh >= 30;
-    rotate_if(s, wrap);
+    r += wrap;
     sh = wrap ? 0 : sh + 3;
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r)
-    out[r * C + col] = (int32_t)((uint32_t)s[r] + (uint32_t)sh);
+  for (int row = 0; row < R; ++row)
+    out[row * C + col] =
+        (int32_t)((uint32_t)w[((row + r) & (R - 1)) * C + col] + (uint32_t)sh);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// One step of one stream. The shift sh is a multiple of 3 in [0, 27] at
+// every step: it starts at 0, grows by 0 or 3, and is reset to 0 when it
+// reaches 30. So cur >> sh needs no clamp, and (cur >> sh) & 7 reads bits
+// sh..sh + 2 <= 29. The wrap compares the old shift with 30 - inc (sh + inc
+// >= 30), beside the add, so that the chain a step is add or compare, then
+// the select.
+__device__ __forceinline__ void stream_step(uint32_t& acc, int& sh,
+                                            int32_t& cur, int32_t nxt,
+                                            int inc, int thr) {
+  acc += (uint32_t)((cur >> sh) & 7);
+  const bool wrap = sh >= thr;
+  cur = wrap ? nxt : cur;
+  sh = wrap ? 0 : sh + inc;
+}
+
+__global__ void __launch_bounds__(LOOP_THREADS)
 stream_kernel(const int32_t* __restrict__ wa, const int32_t* __restrict__ wb,
               const int32_t* __restrict__ d, int C, int steps,
               int32_t* __restrict__ out) {
-  const int col = blockIdx.x * THREADS + threadIdx.x;
-  if (col >= C) return;
-  int32_t sa[R], sb[R];
+  __shared__ int32_t slab[R][LOOP_THREADS];  // each lane's own column
+  const int t = threadIdx.x;
+  const int side = t & 1;  // 0: stream a, 1: stream b
+  const int col = (blockIdx.x * LOOP_THREADS + t) >> 1;
+  const bool live = col < C;  // dead lanes run on zeros, store nothing
+  const int32_t* w = side ? wb : wa;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    sa[r] = wa[r * C + col];
-    sb[r] = wb[r * C + col];
+  for (int r = 0; r < R; ++r) slab[r][t] = live ? w[r * C + col] : 0;
+  const int dc = live ? d[col] : 0;
+  int inc[7], thr[7], adv = 0;  // step i % 7: advance, wrap threshold
+#pragma unroll
+  for (int j = 0; j < 7; ++j) {
+    const bool down = dc > j;
+    inc[j] = down == (side == 1) ? 3 : 0;
+    thr[j] = 30 - inc[j];
+    adv += inc[j];
   }
-  const int dc = d[col];
-  int32_t sha = 0, shb = 0;
+  // Opaque from here on, so that the loop reads the advances and
+  // thresholds from registers. Without it the compiler gave every step's
+  // wrap compare one predicate register, one step after another: 10.2
+  // against 7.9 ns/step at C = 128 (PERF.md).
+#pragma unroll
+  for (int j = 0; j < 7; ++j) asm volatile("" : "+r"(inc[j]), "+r"(thr[j]));
   uint32_t acc = 0;
-  int im7 = 0;  // i % 7
-  for (int i = 0; i < steps; ++i) {
-    const int32_t cura = sra(sa[0], sha) & 7;
-    const int32_t curb = sra(sb[0], shb) & 7;
-    const bool down = dc > im7;
-    im7 = im7 == 6 ? 0 : im7 + 1;
-    sha += down ? 0 : 3;
-    shb += down ? 3 : 0;
-    const bool pa = sha >= 30, pb = shb >= 30;
-    rotate_if(sa, pa);
-    rotate_if(sb, pb);
-    sha = pa ? 0 : sha;
-    shb = pb ? 0 : shb;
-    acc += (uint32_t)cura + (uint32_t)curb;
+  int sh = 0, r = 0;  // cur = slab[r], nxt = slab[r + 1], nxt2 = slab[r + 2]
+  int32_t cur = slab[0][t], nxt = slab[1][t], nxt2 = slab[2][t];
+  const int passes = steps > 0 ? steps / 7 : 0;
+  for (int p = 0; p < passes; ++p) {
+    const int sh0 = sh;
+#pragma unroll
+    for (int j = 0; j < 7; ++j)
+      stream_step(acc, sh, cur, nxt, inc[j], thr[j]);
+    if (sh != sh0 + adv) {  // wrapped in this pass (cur = nxt there)
+      r = (r + 1) & (R - 1);
+      nxt = nxt2;
+      nxt2 = slab[(r + 2) & (R - 1)][t];
+    }
   }
-  out[col] = (int32_t)(acc + (uint32_t)sa[0] + (uint32_t)sb[0]);
+  const int rest = steps - 7 * passes;
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+    if (j < rest) stream_step(acc, sh, cur, nxt, inc[j], thr[j]);
+  uint32_t v = acc + (uint32_t)cur;
+  v += __shfl_xor_sync(FULL, v, 1);
+  if (side == 0 && live) out[col] = (int32_t)v;
 }
 
 inline int grid(int n) { return (n + THREADS - 1) / THREADS; }
@@ -138,7 +179,8 @@ extern "C" int p4_roll_in_carry_launch(const void* w, int C, int rounds,
                                        void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   const DeviceGuard on(device);
-  roll_in_carry_kernel<<<grid(C), THREADS, 0, as_stream(stream)>>>(
+  roll_in_carry_kernel<<<(C + LOOP_THREADS - 1) / LOOP_THREADS,
+                         LOOP_THREADS, 0, as_stream(stream)>>>(
       static_cast<const int32_t*>(w), C, rounds, static_cast<int32_t*>(out));
   return (int)cudaGetLastError();
 }
@@ -149,7 +191,8 @@ extern "C" int p4_stream_launch(const void* wa, const void* wb,
                                 int device, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   const DeviceGuard on(device);
-  stream_kernel<<<grid(C), THREADS, 0, as_stream(stream)>>>(
+  stream_kernel<<<(2 * C + LOOP_THREADS - 1) / LOOP_THREADS, LOOP_THREADS, 0,
+                  as_stream(stream)>>>(
       static_cast<const int32_t*>(wa), static_cast<const int32_t*>(wb),
       static_cast<const int32_t*>(d), C, steps, static_cast<int32_t*>(out));
   return (int)cudaGetLastError();

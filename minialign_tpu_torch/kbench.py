@@ -37,9 +37,13 @@ PyTorch call, where there is one, as device time (device_ms, PROBE_CALLS
 calls a window) and as a call's host-inclusive time (CUDA events around
 PROBE_CALLS calls, as probes._common.Report does), the result held to
 the plain twin; the sums per probe; the probe wrapper's stages
-(time.perf_counter_ns over STAGE_CALLS calls each); the P2 step timer's
-ns/step by slope in every dtype at B in STEP_B and n in STEP_COUNTS; and
-the instruction counts of the probe kernels (cuobjdump -sass).
+(time.perf_counter_ns over STAGE_CALLS calls each); the launch floor (an
+empty kernel's device time, and the host time of its ctypes call with
+and without the launch and through the probes' launch path); the P2
+step timer's ns/step by slope in every dtype at B in STEP_B and n in
+STEP_COUNTS; P3's timing loop (every dtype) and P4's stream update at B
+in LOOP_B and n in LOOP_COUNTS; and the instruction counts of the probe
+kernels and of their loops (cuobjdump -sass).
 
 --walls t1,t4,p2,p4 times the CLI of the --root checkout as a process
 on that workload with -xpacbio -1262144 -v2 (chip_smoke.py's phase 9c
@@ -97,6 +101,8 @@ PROBE_CALLS = 20     # calls a probe window (probes._common.Report.WINDOW)
 STAGE_CALLS = 2000   # calls a wrapper stage is timed over
 STEP_B = (128, 1024)                 # step timer columns
 STEP_COUNTS = (2048, 2**17)          # step timer n (slope to 2 n)
+LOOP_B = (128, 1024)                 # P3's loop and P4's stream columns
+LOOP_COUNTS = (2048, 200_000)        # their n (slope to 2 n): the tools'
 
 # Rows that take every path of the gather kernel (csrc/gather.cu): a
 # window start at each residue mod 16, windows ending on or near the
@@ -818,6 +824,37 @@ def probe_edge_pair(rng, dtype, kind, device, shape=(64, 128)):
     return out
 
 
+# P3's timing loop and P4's stream and roll on edge inputs, shared by the
+# CPU models (tests/test_torch_probe_stream.py), the card tests and
+# chip_smoke.py phase 7: step counts around the stream's 7-step pass,
+# column counts that leave part of a warp idle, directions that never or
+# always move stream b (d outside [0, 7)), words over the whole int32
+# range (the sign bit set in half), and P3's types at their ends
+# (PROBE_EDGE_RANGES: int32 and int16 adds that wrap, bf16 past 256).
+LOOP_EDGE_STEPS = (0, 1, 6, 7, 8, 2048 + 3)
+LOOP_EDGE_C = (1, 33, 128)
+STREAM_D_KINDS = ("mixed", "never", "always")
+ROLL_EDGE_ROUNDS = (0, 1, 11, 64, 65)
+P3_EDGE_DTYPES = ("int32", "float32", "bfloat16", "int16", "int8")
+
+
+def stream_edge_case(rng, C, kind, device):
+    """wa, wb (8, C) int32 drawn over the whole int32 range and d (1, C):
+    "mixed" from [-2, 10), "never" from [-5, 1) (d > i % 7 never holds),
+    "always" from [7, 12) (it always holds)."""
+    from minialign_tpu_torch.probes._common import tensor
+    lo, hi = {"mixed": (-2, 10), "never": (-5, 1), "always": (7, 12)}[kind]
+    wa, wb = (tensor(rng.integers(-2**31, 2**31, (8, C)), "int32", device)
+              for _ in range(2))
+    return wa, wb, tensor(rng.integers(lo, hi, (1, C)), "int32", device)
+
+
+def timing_edge_input(rng, dtype, B, device):
+    """x (64, B) for P3's timing loop at the dtype's ends."""
+    from minialign_tpu_torch.probes._common import tensor
+    return tensor(probe_edge_values(rng, dtype, (64, B)), dtype, device)
+
+
 def probe_cases(dev, rng):
     """(probe, case, run, library or None, plain, work) for every one-call
     case of the probes' mains (P1: probe_subint32's 18, P2:
@@ -1030,11 +1067,106 @@ def step_bench(torch, pkg, emit):
                  t1_ms={n: t.t1_ms for n, t in ts.items()})
 
 
+def loop_bench(torch, pkg, emit):
+    """Emits the ns/step (slope between n and 2 n, fastest of the reps) of
+    P3's timing loop in each dtype of bf16ops.TIMING_DTYPES and of P4's
+    stream update, at each B (columns) of LOOP_B and n of LOOP_COUNTS,
+    after holding each to its plain twin at 64 steps."""
+    from minialign_tpu_torch.probes import _common, bf16ops, wordstream
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(4)
+
+    def bench(kind, dtype, B, run, plain, timer):
+        equal = bool(torch.equal(run(64), plain(64)))
+        ts = {n: timer(n) for n in LOOP_COUNTS}
+        emit(kind=kind, pkg=pkg, dtype=dtype, B=B, equal_at_64=equal,
+             ns_per_step={n: t.ns_per_step for n, t in ts.items()},
+             t1_ms={n: t.t1_ms for n, t in ts.items()})
+
+    for dt in bf16ops.TIMING_DTYPES:
+        for B in LOOP_B:
+            x = bf16ops.timing_input(rng, dt, dev, B)
+            bench("p3_loop", dt, B,
+                  lambda n: bf16ops.timing_loop(x, n, dev),
+                  lambda n: bf16ops.timing_plain(x, n),
+                  lambda n: bf16ops.timing(x, n, dev))
+    for B in LOOP_B:
+        wa, wb = (_common.tensor(rng.integers(0, 2**30, (8, B)), "int32",
+                                 dev) for _ in range(2))
+        d = _common.tensor(rng.integers(0, 7, (1, B)), "int32", dev)
+        bench("p4_stream", "int32", B,
+              lambda n: wordstream.stream_loop(wa, wb, d, n, dev),
+              lambda n: wordstream.stream_timing_plain(wa, wb, d, n),
+              lambda n: wordstream.stream_timing(wa, wb, d, n, dev))
+
+
+def launch_floor(torch, pkg, emit):
+    """Emits the probes' launch floor: the empty kernel's device ms a call
+    (device_ms, PROBE_CALLS calls a window) through probes._common's
+    launch path, and the host ns a call (stage_ns) of that path, of the
+    ctypes call that launches it, and of the ctypes call alone (its
+    `launch` 0): the marshalling, then the launch, then the wrapper's own
+    share. A checkout without the entry emits nothing."""
+    from minialign_tpu_torch import _build
+    from minialign_tpu_torch.probes import _common
+    if "probe_noop_launch" not in _build._SIGS:
+        return
+    idx = torch.cuda.current_device()
+    fn = _common.entry("probe_noop_launch")
+    stream = _common.raw_stream(idx)
+    emit(kind="launch_floor", pkg=pkg,
+         device_ms=device_ms(torch, lambda: _common.launch_floor(idx),
+                             calls=PROBE_CALLS),
+         host_ns={
+             "loop": stage_ns(torch, lambda: None),
+             "ctypes call alone": stage_ns(
+                 torch, lambda: fn(0, 0, 0, 0, 0, 0, 0, idx, stream)),
+             "ctypes call and launch": stage_ns(
+                 torch, lambda: fn(0, 0, 0, 0, 0, 1, 0, idx, stream)),
+             "launch_floor": stage_ns(
+                 torch, lambda: _common.launch_floor(idx))})
+    _build.reset_counts()
+
+
+def sass_loops(lines):
+    """The loops of one function's SASS lines: for each backward branch
+    (a BRA to a label or address at or before it), the instructions from
+    its target to it: (count, opcode histogram)."""
+    ins, labels, jumps = [], {}, []
+    for line in lines:
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            labels[m.group(1)] = len(ins)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z]\w*)(.*)", line)
+        if not m:
+            continue
+        ins.append((int(m.group(1), 16), m.group(2)))
+        if m.group(2) == "BRA":
+            t = re.search(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)", m.group(3))
+            if t:
+                jumps.append((len(ins) - 1, t.group(1) or int(t.group(2), 16)))
+    addr = {a: i for i, (a, _) in enumerate(ins)}
+    loops = []
+    for at, to in jumps:
+        start = labels.get(to) if isinstance(to, str) else addr.get(to)
+        if start is not None and start <= at:
+            ops = {}
+            for _, op in ins[start:at + 1]:
+                ops[op] = ops.get(op, 0) + 1
+            loops.append((at + 1 - start, dict(sorted(
+                ops.items(), key=lambda kv: -kv[1]))))
+    return loops
+
+
 def sass_counts(pkg, emit):
     """Emits, for each probe kernel of the loaded package's library
-    (binop_kernel, roll_concat, step_timer), its SASS instruction count
-    and opcode histogram (cuobjdump -sass; names demangled by cu++filt
-    where the toolkit has it)."""
+    (binop_kernel, roll_concat, step_timer, P3's timing loops, P4's
+    stream and roll, the launch floor's noop), its SASS instruction count
+    and opcode histogram, and those of each loop (sass_loops: a loop's
+    instructions over the steps it unrolls are a step's) (cuobjdump
+    -sass; names demangled by cu++filt where the toolkit has it)."""
     from minialign_tpu_torch import _build
     bins = [shutil.which(t) or f"/usr/local/cuda/bin/{t}"
             for t in ("cuobjdump", "cu++filt")]
@@ -1043,15 +1175,18 @@ def sass_counts(pkg, emit):
         return
     text = subprocess.run([bins[0], "-sass", _build.LIB], capture_output=True,
                           text=True, timeout=300).stdout
-    funcs, cur = {}, None
+    funcs, body, cur = {}, {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             cur = m.group(1) if re.search(
-                r"binop|roll_concat|step_timer", m.group(1)) else None
+                r"binop|roll_concat|step_timer|timing|stream|roll_in_carry"
+                r"|noop", m.group(1)) else None
             if cur:
-                funcs[cur] = {}
+                funcs[cur], body[cur] = {}, []
             continue
+        if cur:
+            body[cur].append(line)
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
                      line)
         if cur and m:
@@ -1061,9 +1196,10 @@ def sass_counts(pkg, emit):
         r = subprocess.run([bins[1]], input="\n".join(names),
                            capture_output=True, text=True, timeout=60)
         names = r.stdout.splitlines() or names
-    for name, ops in zip(names, funcs.values()):
+    for name, (fn, ops) in zip(names, funcs.items()):
         emit(kind="sass", pkg=pkg, function=name, n=sum(ops.values()),
-             ops=dict(sorted(ops.items(), key=lambda kv: -kv[1])))
+             ops=dict(sorted(ops.items(), key=lambda kv: -kv[1])),
+             loops=[dict(n=n, ops=o) for n, o in sass_loops(body[fn])])
 
 
 def card():
@@ -1423,7 +1559,9 @@ def main(argv=None):
     if o.probes:
         probes_bench(torch, pkg, emit)
         wrapper_stages(torch, pkg, emit)
+        launch_floor(torch, pkg, emit)
         step_bench(torch, pkg, emit)
+        loop_bench(torch, pkg, emit)
         sass_counts(pkg, emit)
     return 0
 

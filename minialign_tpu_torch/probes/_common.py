@@ -216,6 +216,14 @@ def launch(kernel: str, name: str, index: int, *args: int) -> None:
         _build.check(_build.library(), rc, f"{name} ({kernel})")
 
 
+def launch_floor(index: int) -> None:
+    """One launch of an empty kernel (csrc/probe_common.cuh:noop_launch)
+    through the probes' launch path, on device `index`: the floor that a
+    one-call case's device and host times are set against (kbench.py
+    --probes). The CLI never calls it."""
+    launch("noop", "probe_noop_launch", index, 0, 0, 0, 0, 0, 1, 0)
+
+
 class Timed(NamedTuple):
     """A timing loop's output at n steps and its cost per step by slope:
     (t(2n) - t(n)) / n, each t the fastest of `reps` runs."""

@@ -361,6 +361,9 @@ def test_p2_kernels_match_plain(dtype, dev):
 
 
 def test_p3_kernels_match_plain(dev):
+    """run2's ten cases; the timing loop on the tool's inputs and at the
+    types' ends (int32 and int16 adds that wrap, bf16 past 256), one
+    element a thread (int32, float32) or two rows a word (the others)."""
     rng = np.random.default_rng(13)
     for op, _, dtype in bf16ops.OPS:
         x, y = bf16ops.inputs(rng, dtype, dev)
@@ -369,9 +372,18 @@ def test_p3_kernels_match_plain(dev):
         x = bf16ops.timing_input(rng, dtype, dev)
         for n in (1, 64):
             _same(bf16ops.timing_loop(x, n, dev), bf16ops.timing_plain(x, n))
+    for dtype in kbench.P3_EDGE_DTYPES:
+        for B in kbench.LOOP_EDGE_C:
+            x = kbench.timing_edge_input(rng, dtype, B, dev)
+            for n in kbench.LOOP_EDGE_STEPS:
+                _same(bf16ops.timing_loop(x, n, dev),
+                      bf16ops.timing_plain(x, n))
 
 
 def test_p4_kernels_match_plain(dev):
+    """The three primitives and the stream on the tool's inputs; the
+    stream and roll_in_carry on kbench's edge cases (C 1 / 33 / 128, steps
+    around the 7-step pass, d outside [0, 7), words with the sign bit)."""
     rng = np.random.default_rng(14)
     shape = wordstream.SHAPE
     w = tensor(rng.integers(0, 2**30, shape), "int32", dev)
@@ -385,6 +397,16 @@ def test_p4_kernels_match_plain(dev):
     for n in (1, 64, 300):
         _same(wordstream.stream_loop(w, wb, d, n, dev),
               wordstream.stream_timing_plain(w, wb, d, n))
+    for C in kbench.LOOP_EDGE_C:
+        for kind in kbench.STREAM_D_KINDS:
+            wa, wb, d = kbench.stream_edge_case(rng, C, kind, dev)
+            for n in kbench.LOOP_EDGE_STEPS:
+                _same(wordstream.stream_loop(wa, wb, d, n, dev),
+                      wordstream.stream_timing_plain(wa, wb, d, n))
+        w = tensor(rng.integers(-2**31, 2**31, (8, C)), "int32", dev)
+        for rounds in kbench.ROLL_EDGE_ROUNDS:
+            _same(wordstream.roll_in_carry(w, dev, rounds),
+                  wordstream.roll_in_carry_plain(w, rounds))
 
 
 # ---- P1 and P2 redesigned: packed lanes, edge inputs, the thin launch
