@@ -14,33 +14,49 @@ Phases, in order; any failure exits non-zero before the result line:
   3  K1 fill kernel == fill_plain (both score models x W 16/32/64 x
      trace on/off at B=128, ~1 kb; the edge cases of edge_pairs at W 16
      and 64; a max in the last block; W=64 with the -xpacbio scores at
-     B=128 x 20 kb), with times, ns/step and the bound
+     B=128 x 20 kb), with times, ns/step and the bound; then D2, the
+     fill in store mode (reading its windows straight from the sequence
+     stores through the packed descriptor block, one launch), on every
+     kbench.GATHER_KINDS kind (L 128/4096/32768 a side, B 1/3/64,
+     padded and unpadded stores, both score models x W 16/32/64 x trace
+     on/off): results and trace buffers word for word equal to the
+     rows-mode kernel on gather_pair's rows and to the plain D2
+     (gather_pair_plain, then fill_plain)
   4  K3 traceback kernel == dtrace_plain on phase 3's trace buffers,
      with ns/move at 20 kb
   4b D1, the duo window in the untraced fill's epilogue: at B 1/48/512
      on kbench.duo_fill_case (failed downs, duo_geometry's edge
-     geometry, reads and references past 262 kb), the geometry read
-     from behind a down descriptor block as the engine uploads it, the
-     fill's results == fill_plain's and the up descriptor block and down
-     rows == duo_window_plain's on them, word for word
+     geometry, reads and references past 262 kb), its rows laid into
+     stores (kbench.store_case), the geometry read from behind the down
+     descriptor block as the engine uploads it, the store-mode fill (as
+     the engine runs it) and the rows-mode fill: the fill's results ==
+     fill_plain's and the up descriptor block and down rows ==
+     duo_window_plain's on them, word for word
   5  every golden of tests/data through the port's CLI on CUDA with the
      duo on (GOLDENS, compared as tests/test_golden_sam.py compares
-     them): fill, gather and walk launched, the duo on a linear reference
+     them): fill and walk launched, every fill in store mode, no gather,
+     the duo on a linear reference; then the query input paths
+     (QUERY_INPUTS: stdin plain and gzipped, a gzipped file, -t1 / -t2)
   6  real size: bench_e2e.make_workload's 5 Mb genome and 100 x 20 kb
      reads mapped with -t1 -xpacbio, with MINIALIGN_DUO=1 (the default)
-     and then 0 (the two-step path); each SAM (without @PG) must hash to
-     the JAX package's digest below; the duo launched in the first run
-     and not in the second; with the engine's batches counted, five
-     launches a duo batch (two gathers, two fills, one of them counted
-     as the duo, a walk) and a gather and a fill a batch of downs or
-     ups, exactly; the port's
-     host library loaded; the problems of each traced fill launch. Then phases 3-4 again at the median of
-     those launch sizes (20 kb): the kernels timed, their results held
-     to phase 3's plain ones for the same problems. The gather launches
-     once a fill launch; a profiled rerun counts the host-to-device
-     copies (pageable and pinned); phase 2's timing again at the run's
-     median gather launch, phase 4b's at its median duo launch (the
-     fused fill timed with the epilogue and without it)
+     and then 0 (the two-step path), then on stdin at -t2 (the threaded
+     pipeline, scheduler threads on one engine); each SAM (without @PG)
+     must hash to the JAX package's digest below; the duo launched in
+     the first run and not in the second; with the engine's batches and
+     fills counted, exactly three launches a duo batch (the down fill
+     with the duo epilogue, the traced up fill, the walk), one a batch
+     of downs and two a batch of ups (the fill, the walk), every fill in
+     store mode and no gather; the port's host library loaded; the
+     problems of each traced fill launch. Then phases 3-4 again at the
+     median of those launch sizes (20 kb): the kernels timed, their
+     results held to phase 3's plain ones for the same problems; a
+     profiled rerun counts the host-to-device copies (pageable and
+     pinned); phase 4b's timing at the median duo launch (the fused
+     fill timed with the epilogue and without it); D2 at B=128 x 20 kb
+     and at the run's median store-mode launch: K1's ns/step in store
+     mode against rows mode on the same problems, in turns, and the
+     device time of D2 before (gather_pair, then the fill: two
+     launches) and after (the store-mode fill: one launch)
   7  the step-mix probes P1-P4 through their entry point
      (minialign_tpu_torch.probes.run, i.e. python -m
      minialign_tpu_torch.probes): every case of the four JAX tools, each
@@ -98,8 +114,10 @@ package on a CPU.
 """
 
 import dataclasses
+import gzip
 import hashlib
 import io
+import itertools
 import json
 import os
 import subprocess
@@ -156,6 +174,8 @@ GOLDENS = (
      "ref_out.b6", "exact", None, None),
     ("ava_paf", ["-t1", "-X", "-xava", "-Opaf", "{d}/treads.fa",
                  "{d}/treads2.fq"], "ref_ava.paf", "exact", None, None),
+    ("ava_paf_t2", ["-t2", "-X", "-xava", "-Opaf", "{d}/treads.fa",
+                    "{d}/treads2.fq"], "ref_ava.paf", "exact", None, None),
     ("ava_sam", ["-t1", "-X", "-xava", "-R", "@RG\\tID:ava",
                  "{d}/treads.fa", "{d}/treads2.fq"], "ref_ava_rg.sam", "pg",
      None, None),
@@ -201,7 +221,17 @@ GOLDENS = (
 )
 # the goldens too slow for the plain CPU path (tests/test_torch_golden_*.py
 # leave them to the card)
-CARD_GOLDENS = ("ava_paf", "ava_sam", "twoblock", "rep", "xdrop", "ksort")
+CARD_GOLDENS = ("ava_paf", "ava_paf_t2", "ava_sam", "twoblock", "rep",
+                "xdrop", "ksort")
+# The query input paths: tests/data/treads.fq on stdin, plain and
+# gzipped, and gzipped by path, each at -t1 and -t2 (stdin maps in
+# process, -t2 through the CLI's threaded source/drain pipeline; a path
+# at -t2 in worker processes), each held to ref_out.sam without @PG:
+# (name, arguments, source). "{t}/treads.fq.gz" is query_input's file.
+QUERY_INPUTS = tuple(
+    (f"{src}_t{n}", [f"-t{n}", "{d}/tref.fa"]
+     + (["{t}/treads.fq.gz"] if src == "gz_path" else []), src)
+    for src in ("stdin", "stdin_gz", "gz_path") for n in (1, 2))
 KERNELS = {
     "fill": ("minialign_tpu_torch/csrc/fill.cu",
              "minialign_tpu/dp/pallas_fill.py:663"),
@@ -211,6 +241,8 @@ KERNELS = {
                "minialign_tpu/dp/dtrace.py:66"),
     "duo": ("minialign_tpu_torch/csrc/fill.cu",
             "minialign_tpu/extend.py:675"),
+    "fused": ("minialign_tpu_torch/csrc/fill.cu",
+              "minialign_tpu/extend.py:651"),
     "lookup": ("minialign_tpu_torch/csrc/lookup.cu",
                "minialign_tpu/parallel/shard.py:95"),
     "p1": ("minialign_tpu_torch/csrc/probe_subint32.cu",
@@ -223,8 +255,8 @@ KERNELS = {
            "tests/tools/probe_wordstream.py:26"),
 }
 U64_END = 1 << 64
-MAPPER = ("fill", "gather", "dtrace", "duo")  # the CLI's kernels
-SHARDED = ("fill", "gather", "dtrace", "lookup")  # the sharded pipeline's
+MAPPER = ("fill", "fused", "dtrace", "duo")  # the CLI's kernels
+SHARDED = ("fill", "fused", "dtrace", "lookup")  # the sharded pipeline's
 PROBES = ("p1", "p2", "p3", "p4")            # the probes' kernels
 
 
@@ -263,6 +295,10 @@ def edge_pairs(np, rng):
             (empty, empty)]
 
 
+def fmt(xs):
+    return "/".join(f"{x:.2f}" for x in xs)
+
+
 def show(bd):
     return f"bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})"
 
@@ -275,15 +311,28 @@ def bound(nbytes, ops):
                 bound_by="bytes" if tb >= to else "operations")
 
 
-def fill_bound(res, alen, blen, W, trace):
-    """The fill reads each problem's characters and writes its results
-    and, traced, its own blocks of codes, dirs, iheads and rprevs."""
+def fill_work(res, alen, blen, W, trace):
+    """(bytes, operations) of a fill: it reads each problem's characters
+    and writes its results and, traced, its own blocks of codes, dirs,
+    iheads and rprevs."""
     steps = res.n_steps.long()
     B = len(steps)
     nbytes = int(alen.long().sum() + blen.long().sum()) + 8 * B + 20 * B
     if trace:
         nbytes += int((steps // 32).sum()) * (32 * 16 * 4 + 12)
-    return bound(nbytes, int(steps.sum()) * W * FILL_OPS_CELL[trace])
+    return nbytes, int(steps.sum()) * W * FILL_OPS_CELL[trace]
+
+
+def fill_bound(res, alen, blen, W, trace):
+    return bound(*fill_work(res, alen, blen, W, trace))
+
+
+def fused_bound(res, alen, blen, W, trace):
+    """D2 in one launch: the fill's work, its characters read from the
+    stores, and its two descriptor rows a problem read."""
+    from minialign_tpu_torch.dp.cuda_gather import WORDS
+    nbytes, ops = fill_work(res, alen, blen, W, trace)
+    return bound(nbytes + len(alen) * 2 * 4 * WORDS, ops)
 
 
 def walk_bound(summ):
@@ -334,15 +383,29 @@ def golden_view(text, mode):
     return out
 
 
-def run_cli(cli, args, want_rc=0):
-    """The port's CLI in this process: its stdout; fails unless it exits
-    with want_rc."""
-    old = sys.stdout
+def query_input(src, tmp):
+    """Lays out a QUERY_INPUTS source in tmp (treads.fq gzipped as
+    tmp/treads.fq.gz) and returns the bytes stdin must hold, or None."""
+    with open(os.path.join(DATA, "treads.fq"), "rb") as f:
+        raw = f.read()
+    gz = gzip.compress(raw, mtime=0)
+    with open(os.path.join(tmp, "treads.fq.gz"), "wb") as f:
+        f.write(gz)
+    return {"stdin": raw, "stdin_gz": gz, "gz_path": None}[src]
+
+
+def run_cli(cli, args, want_rc=0, stdin=None):
+    """The port's CLI in this process, with `stdin` (bytes) as its
+    standard input when given: its stdout; fails unless it exits with
+    want_rc."""
+    old = sys.stdout, sys.stdin
     sys.stdout = buf = io.StringIO()
+    if stdin is not None:
+        sys.stdin = io.TextIOWrapper(io.BytesIO(stdin))
     try:
         rc = cli.main(args)
     finally:
-        sys.stdout = old
+        sys.stdout, sys.stdin = old
     if rc != want_rc:
         fail(f"CLI {' '.join(args)} exited {rc}, not {want_rc}")
     return buf.getvalue()
@@ -472,12 +535,12 @@ def phase9(np, torch, card, stats, ref_fa, reads_fq):
         got = shard.align_batch_sharded(mp, mi, reads, mesh)
         torch.cuda.synchronize()
         swall = time.time() - t1
-        n = {k: _build.LAUNCHES[k] for k in SHARDED + ("duo",)}
+        n = {k: _build.LAUNCHES[k] for k in SHARDED + ("duo", "gather")}
     finally:
         native._lib, native._tried = lib_, tried
     if got != want:
         fail("align_batch_sharded over [cuda:0, cuda:0] != align_batch")
-    if not all(n[k] for k in SHARDED) or n["duo"]:
+    if not all(n[k] for k in SHARDED) or n["duo"] or n["gather"]:
         fail(f"sharded pipeline: launches {n}")
     say(f"[9b] ShardedIndex.lookup == MMIndex.lookup on {len(q_e2e)} "
         f"hashes; align_batch_sharded over [cuda:0, cuda:0], native "
@@ -645,7 +708,7 @@ def phase10(torch, card, ref_fa, reads_fq):
                      f"from dtrace")
     say(f"[10] the edge problems, both score models, W 16/32/64: the host "
         f"walk on the card's trace buffers equals dtrace")
-    launched()
+    _build.reset_counts()       # the comparisons' launches are not the CLI's
 
     with tempfile.TemporaryDirectory() as tmp:
         for c, (sha, rc) in enumerate(fuzz.CASES):
@@ -685,10 +748,12 @@ def phase10(torch, card, ref_fa, reads_fq):
                 f"{card} (workload written in {made:.1f} s)")
     os.environ.pop("MINIALIGN_DUO", None)
     os.environ.pop("MINIALIGN_HOST_TRACE", None)
+    if total["fused"] != total["fill"]:
+        fail(f"parity phase: a fill not in store mode: {total}")
     say(f"[10] parity phase: {len(fuzz.CASES)} fuzz cases and the long "
         f"reads three ways in {time.time() - t10:.1f} s; fill "
-        f"{total['fill']}, gather {total['gather']}, walk "
-        f"{total['dtrace']} launches (duo {total['duo']}) on {card}")
+        f"{total['fill']} (all in store mode), walk {total['dtrace']} "
+        f"launches (duo {total['duo']}) on {card}")
 
 
 def main():
@@ -871,6 +936,73 @@ def main():
         f"x W 16/64 x trace on/off) and on a max in the last block "
         f"({time.time() - t0:.0f} s)")
 
+    # D2: the fill in store mode on every GATHER_KINDS kind, against the
+    # rows-mode kernel on gather_pair's rows (every word, the trace
+    # buffers whole) and against the plain D2
+    t0 = time.time()
+    err["fused"] = 0
+    rng = np.random.default_rng(3)
+    n_runs = 0
+
+    def flat(res, trace):
+        return list(res[0]) + list(res[1]) if trace else list(res)
+
+    def same_store(got, rows, want, trace, what):
+        """The store-mode fill's results equal the rows-mode kernel's
+        word for word, and the plain D2's (trace words over each
+        problem's own blocks)."""
+        if not all(map(torch.equal, flat(got, trace), flat(rows, trace))):
+            fail(f"store-mode fill != rows-mode fill: {what}")
+        rk, rw = (got[0], want[0]) if trace else (got, want)
+        for f in band.FillResult._fields:
+            err["fused"] = max(err["fused"], int(
+                (getattr(rk, f) - getattr(rw, f)).abs().max()))
+        if err["fused"]:
+            fail(f"store-mode fill != plain D2: {what}")
+        own = (rk.n_steps // band.BLK).tolist()
+        if trace and not all(torch.equal(x[k, :m], y[k, :m])
+                             for x, y in zip(got[1], want[1])
+                             for k, m in enumerate(own)):
+            fail(f"store-mode fill: trace buffers != plain D2's: {what}")
+
+    cases = [(kinds, general, La, Ls[(i + 1) % len(Ls)], B)
+             for kinds, general in ((kbench.GATHER_KINDS, True),
+                                    (kbench.LINEAR_KINDS, False))
+             for i, La in enumerate(Ls) for B in (1, 3, 64)]
+    for kinds, general, La, Lb, B in cases:
+        (fa, sa), (fb, sb) = (kbench.gather_side(rng, x, B, kinds)
+                              for x in (La, Lb))
+        blk = torch.from_numpy(cuda_gather.pack_desc([sa, sb])).to(dev)
+        e = cuda_gather.desc_fields(blk)["elen"]
+        nb = band.max_blocks_for(sa["elen"], sb["elen"])
+        stores = [on_dev([pad(f) if pad else f for f in (fa, fb)])
+                  for pad in (cuda_gather.pad_store, None)]
+        a, b = cuda_gather.gather_pair_plain(*stores[1], blk, B, La, Lb)
+        for (pname, p), W, trace in itertools.product(
+                pr.items(), (16, 32, 64), (False, True)):
+            want = band.fill_plain(p, W, nb, trace, a, e[:B], b, e[B:])
+            for sta, stb in stores:
+                _build.reset_counts()
+                got = band.fill_store(p, W, nb, trace, sta, stb, blk, B, La,
+                                      Lb, general=general)
+                n = _build.LAUNCHES
+                if (n["fill"], n["fused"], n["gather"]) != (1, 1, 0):
+                    fail(f"store-mode fill: launches {n}")
+                ka, kb = cuda_gather.gather_pair(sta, stb, blk, B, La, Lb)
+                rows = cuda_fill.fill_cuda(p, W, nb, trace, ka, e[:B], kb,
+                                           e[B:])
+                same_store(got, rows, want, trace,
+                           f"La={La} Lb={Lb} B={B} {pname} W={W} "
+                           f"trace={trace} general={general}")
+                n_runs += 1
+    say(f"[3] D2, the store-mode fill, equal to the rows-mode kernel on "
+        f"gather_pair's rows, word for word, and to the plain D2 on "
+        f"{n_runs} launches: every kind ({', '.join(kbench.GATHER_KINDS)}) "
+        f"through the general loads, and the kinds that neither wrap nor "
+        f"start before their segment through the linear ones, at L {Ls}, B "
+        f"1/3/64, padded and unpadded stores, 2 models x W 16/32/64 x trace "
+        f"on/off; one launch each, no gather ({time.time() - t0:.0f} s)")
+
     p = pr["combined"]
     args20 = pairs(7, 128, 20000)
     got, want20, tms, pms = check_fill(p, 64, True, args20, reps=3)
@@ -899,8 +1031,10 @@ def main():
                + 2 * B20 * 4 * cuda_gather.WORDS)
     gb, fb = (bound(g_bytes, 0)["bound_ms"],
               fill_bound(got_u, args20[1], args20[3], 64, False)["bound_ms"])
-    say(f"[3] D2 (gather_pair, then the untraced fill) at B=128 x 20 kb: "
-        f"bound {gb + fb:.6f} ms = K2's {gb:.6f} + K1's {fb:.6f}")
+    say(f"[3] D2 at B=128 x 20 kb, untraced: as gather_pair, then the fill, "
+        f"bound {gb + fb:.6f} ms = K2's {gb:.6f} + K1's {fb:.6f}; as one "
+        f"launch (the fill reading the stores) "
+        f"{show(fused_bound(got_u, args20[1], args20[3], 64, False))}")
     del got_u
     res = got[0]
     cells = int(res.n_steps.sum()) * 64
@@ -926,20 +1060,31 @@ def main():
     err["duo"] = 0
 
     def duo_case(B, seed):
-        """(fused call, plain call, summary buffer, the fill's args and
-        blocks) on kbench.duo_fill_case(seed, B): the geometry behind a
-        down descriptor block as the engine uploads it, the epilogue
-        writing the down rows into the summary's last three rows."""
+        """kbench.duo_fill_case(seed, B), its rows laid into stores
+        (kbench.store_case), the geometry behind the down descriptor
+        block as the engine uploads it, the epilogue writing the down rows
+        into the summary's last three rows: {store: the store-mode fill
+        with the epilogue (as the engine runs it), rows: the rows-mode
+        one, bare: the store-mode fill without it, plain, window, summ,
+        args, nb}."""
         ab, alen, bb, blen, c = kbench.duo_fill_case(band, seed, B)
+        fa, fb, desc = kbench.store_case(ab, alen, bb, blen)
         g = duo.pack_geom(c["rvbase"], c["qub"], c["rlen"], c["qlen"],
                           c["cp0"], c["cp1"])
-        nd = cuda_gather.WORDS * 2 * B
-        blk = torch.from_numpy(np.concatenate(
-            [np.full(nd, -3, np.int32), g])).to(dev)
+        nd = len(desc)
+        blk = torch.from_numpy(np.concatenate([desc, g])).to(dev)
+        sta, stb = on_dev((fa, fb))
         args = on_dev((ab, alen, bb, blen))
         nb = band.max_blocks_for(alen, blen)
         summ = torch.full((17, B), -1, dtype=torch.int32, device=dev)
         pa = pr["affine"]
+        duo_args = (blk[nd:], summ[14:])
+
+        def store(with_duo=True):
+            return band.fill_store(pa, 64, nb, False, sta, stb, blk[:nd], B,
+                                   ab.shape[1], bb.shape[1],
+                                   duo=duo_args if with_duo else None,
+                                   general=False)
 
         def plain():
             res = band.fill_plain(pa, 64, nb, False, *args)
@@ -948,9 +1093,10 @@ def main():
         def window(res):
             return duo.duo_window_plain(res.max_score, res.max_i,
                                         res.max_j, blk[nd:])
-        return (lambda: cuda_fill.fill_cuda(pa, 64, nb, False, *args,
-                                            duo=(blk[nd:], summ[14:])),
-                plain, summ, args, nb, window)
+        return dict(store=store, bare=lambda: store(False),
+                    rows=lambda: cuda_fill.fill_cuda(pa, 64, nb, False,
+                                                     *args, duo=duo_args),
+                    plain=plain, window=window, summ=summ, args=args, nb=nb)
 
     def same_duo(B, got, want, summ):
         (res, desc), (wres, (wdesc, dsum)) = got, want
@@ -962,16 +1108,20 @@ def main():
             fail(f"duo epilogue != duo_window_plain at B={B}")
 
     for B in (1, 48, 512):
-        run_k, run_p, summ, *_ = duo_case(B, B)
-        _build.reset_counts()
-        got = run_k()
-        if _build.LAUNCHES["duo"] != 1 or _build.LAUNCHES["fill"] != 1:
-            fail(f"duo epilogue at B={B}: launches {_build.LAUNCHES}")
-        same_duo(B, got, run_p(), summ)
+        case = duo_case(B, B)
+        want = case["plain"]()
+        for mode, fused in (("store", 1), ("rows", 0)):
+            _build.reset_counts()
+            got = case[mode]()
+            n = _build.LAUNCHES
+            if (n["fill"], n["fused"], n["duo"]) != (1, fused, 1):
+                fail(f"duo epilogue at B={B}, {mode} mode: launches {n}")
+            same_duo(B, got, want, case["summ"])
     say(f"[4b] duo window in the fill's epilogue equal to plain at B "
         f"1/48/512, and the fill's own results (failed downs, clipped tp, "
-        f"both caps, cp at 0, bases past 2^31, reads past 262 kb; one fill "
-        f"launch each, counted as one duo launch; {time.time() - t0:.0f} s)")
+        f"both caps, cp at 0, bases past 2^31, reads past 262 kb), the fill "
+        f"in store mode and in rows mode; one fill launch each, counted as "
+        f"one duo launch; {time.time() - t0:.0f} s)")
 
     # ---- 5: every golden through the CLI on CUDA, duo on
     os.environ["MINIALIGN_TORCH_DEVICE"] = "cuda"
@@ -990,10 +1140,14 @@ def main():
             del os.environ["MINIALIGN_LAUNCH_LOG"]
             workers = _build.worker_launches(logs)
         dt = time.time() - t0
-        counts = {k: _build.LAUNCHES[k] + workers[k] for k in MAPPER}
+        counts = {k: _build.LAUNCHES[k] + workers[k]
+                  for k in MAPPER + ("gather",)}
         circular = any(a.startswith("-c") for a in args)
         if not all(counts[k] for k in MAPPER if k != "duo" or not circular):
             fail(f"{golden} ({name}): a kernel was not launched: {counts}")
+        if counts["fused"] != counts["fill"] or counts["gather"]:
+            fail(f"{golden} ({name}): a fill not in store mode or a gather "
+                 f"launched: {counts}")
         if jax_sha and sam_digest(out)[0] != jax_sha:
             fail(f"{golden} ({name}): SAM digest {sam_digest(out)[0]} != "
                  f"JAX package's {jax_sha}")
@@ -1006,6 +1160,30 @@ def main():
             f"launches {counts})")
     say(f"[5] all {len(GOLDENS)} goldens identical with the duo on "
         f"({time.time() - t5:.0f} s)")
+    # the query input paths: stdin (plain, gzipped) and a gzipped file
+    with open(os.path.join(DATA, "ref_out.sam")) as f:
+        want = golden_view(f.read(), "pg")
+    for name, args, src in QUERY_INPUTS:
+        with tempfile.TemporaryDirectory() as tmp:
+            logs = os.path.join(tmp, "launches")
+            os.mkdir(logs)
+            os.environ["MINIALIGN_LAUNCH_LOG"] = logs
+            stdin = query_input(src, tmp)
+            _build.reset_counts()
+            t0 = time.time()
+            out = run_cli(cli, golden_args(args, DATA, tmp), stdin=stdin)
+            del os.environ["MINIALIGN_LAUNCH_LOG"]
+            workers = _build.worker_launches(logs)
+        counts = {k: _build.LAUNCHES[k] + workers[k]
+                  for k in MAPPER + ("gather",)}
+        if not all(counts[k] for k in MAPPER) or counts["gather"] or \
+                counts["fused"] != counts["fill"]:
+            fail(f"query input {name}: launches {counts}")
+        if golden_view(out, "pg") != want:
+            fail(f"query input {name}: not identical to ref_out.sam (pg)")
+        say(f"[5] {name} ({' '.join(args)}, query "
+            f"{'from stdin' if stdin else 'by path'}): ref_out.sam identical "
+            f"(pg; {time.time() - t0:.1f} s, launches {counts})")
 
     # ---- 6: real size
     os.environ.update(BENCH_E2E_GENOME_MB="5", BENCH_E2E_READS=str(E2E_READS),
@@ -1020,12 +1198,15 @@ def main():
                      if i % 4 == 1)
     say(f"[6] workload: {E2E_READS} reads, {nbases} bases, 5 Mb genome "
         f"({time.time() - t0:.1f} s to write)")
-    # the engine's batches, counted around its two batch builders: a duo
-    # batch is five launches (gather, fill with the duo epilogue, gather,
-    # traced fill, walk), a batch of downs or ups a gather and a fill
-    # (and a walk for ups)
+    # the engine's batches and fills, counted around its two batch
+    # builders and its fill (lists: the scheduler threads append
+    # concurrently): a duo batch is three launches (the down fill with
+    # the duo epilogue, the traced up fill, the walk), a batch of downs
+    # one (the fill), a batch of ups two (the fill, the walk)
+    from minialign_tpu_torch import extend
     from minialign_tpu_torch.extend import FillEngine
     made = {"duo": [], "plain": []}
+    fills = []                         # (traced, with the duo epilogue)
 
     def counted(fn, key):
         def wrap(self, *a, **k):
@@ -1033,53 +1214,80 @@ def main():
             return fn(self, *a, **k)
         return wrap
 
+    def counted_fill(p, W, nb, trace, *a, duo=None, **kw):
+        fills.append((trace, duo is not None))
+        return engine_fill(p, W, nb, trace, *a, duo=duo, **kw)
+
     builders = FillEngine._duo_batch, FillEngine._batch
+    engine_fill = extend.fill_store
     FillEngine._duo_batch = counted(builders[0], "duo")
     FillEngine._batch = counted(builders[1], "plain")
+    extend.fill_store = counted_fill
     for env in ("1", "0"):
         os.environ["MINIALIGN_DUO"] = env
         _build.reset_counts()
         made["duo"].clear()
         made["plain"].clear()
+        fills.clear()
         torch.cuda.synchronize()
         t0 = time.time()
         out = run_cli(cli, ["-t1", "-xpacbio", ref_fa, reads_fq])
         wall = time.time() - t0
-        n = {k: _build.LAUNCHES[k] for k in MAPPER}
+        n = {k: _build.LAUNCHES[k] for k in MAPPER + ("gather",)}
         nd, npl = len(made["duo"]), len(made["plain"])
+        n_up = sum(tr for tr, _ in fills) - nd
+        n_down = sum(not tr and not d for tr, d in fills)
         sha, body = sam_digest(out)
         if sha != E2E_SHA256:
             fail(f"real-size SAM digest {sha} (MINIALIGN_DUO={env}) != JAX "
                  f"package's {E2E_SHA256}")
-        if not all(v for k, v in n.items() if k != "duo") or \
-                (n["duo"] > 0) != (env == "1"):
+        if not all(v for k, v in n.items() if k not in ("duo", "gather")) \
+                or (n["duo"] > 0) != (env == "1"):
             fail(f"real size, MINIALIGN_DUO={env}: launches {n}")
-        if n["gather"] != n["fill"]:
-            fail(f"real size: {n['gather']} gather launches for "
-                 f"{n['fill']} fill launches")
-        if n["duo"] != nd or n["fill"] != 2 * nd + npl or \
-                not nd <= n["dtrace"] <= nd + npl:
-            fail(f"real size: launches {n} for {nd} duo batches and {npl} "
-                 f"batches of downs or ups (a duo batch: two fills, one "
-                 f"counted as the duo, and a walk; a batch of downs or "
-                 f"ups: a fill, and a walk for ups)")
+        want = dict(fill=2 * nd + n_down + n_up, fused=2 * nd + n_down + n_up,
+                    dtrace=nd + n_up, duo=nd, gather=0)
+        if n != want or sum(d for _, d in fills) != nd or \
+                n_down + n_up != npl or \
+                n["fill"] + n["dtrace"] != 3 * nd + n_down + 2 * n_up:
+            fail(f"real size: launches {n} for {nd} duo batches, {n_down} "
+                 f"of downs and {n_up} of ups (a duo batch: the down fill "
+                 f"with the duo epilogue, the traced up fill, the walk; a "
+                 f"batch of downs: its fill; of ups: its fill and walk; "
+                 f"every fill in store mode, no gather)")
         if env == "1":
             launches = n
             batches = sorted(_build.TRACED_FILL_B)
-            shapes = sorted(_build.GATHER_SHAPES,
-                            key=lambda x: (x[0] + x[1], x[2] + x[3]))
+            fshapes = sorted(_build.FUSED_SHAPES)
         recs = sum(1 for line in body.splitlines()
                    if not line.startswith("@"))
         say(f"[6] real size -t1 -xpacbio, MINIALIGN_DUO={env}: SAM "
             f"identical to the JAX package's ({recs} records); wall "
             f"{wall:.2f} s{' (the first map)' if env == '1' else ''}, "
             f"{nbases / wall / 1e6:.3f} Mbases/s, launches {n} "
-            f"({sum(n.values()) - n['duo']} in all) for {nd} duo batches "
-            f"and {npl} of downs or ups, problems "
-            f"per traced fill launch {sorted(_build.TRACED_FILL_B)} on "
-            f"{card}")
+            f"({n['fill'] + n['dtrace']} in all) for {nd} duo batches, "
+            f"{n_down} of downs and {n_up} of ups: three a duo batch, one "
+            f"a batch of downs, two a batch of ups, exactly; problems per "
+            f"traced fill launch {sorted(_build.TRACED_FILL_B)} on {card}")
     del os.environ["MINIALIGN_DUO"]
     FillEngine._duo_batch, FillEngine._batch = builders
+    extend.fill_store = engine_fill
+    # the reads on stdin at -t2: the threaded source/drain pipeline, the
+    # scheduler threads on one engine
+    with open(reads_fq, "rb") as f:
+        raw = f.read()
+    _build.reset_counts()
+    t0 = time.time()
+    out = run_cli(cli, ["-t2", "-xpacbio", ref_fa], stdin=raw)
+    wall = time.time() - t0
+    n = {k: _build.LAUNCHES[k] for k in MAPPER + ("gather",)}
+    if sam_digest(out)[0] != E2E_SHA256:
+        fail(f"real size on stdin at -t2: SAM digest {sam_digest(out)[0]} "
+             f"!= JAX package's {E2E_SHA256}")
+    if not all(n[k] for k in MAPPER) or n["gather"] or \
+            n["fused"] != n["fill"]:
+        fail(f"real size on stdin at -t2: launches {n}")
+    say(f"[6] real size -t2 -xpacbio, the reads on stdin: SAM identical to "
+        f"the JAX package's; wall {wall:.2f} s, launches {n}")
     if not native.available():
         fail("the port's host library (csrc/host) did not load")
     _build.reset_counts()
@@ -1087,23 +1295,11 @@ def main():
         cli, ["-t1", "-xpacbio", ref_fa, reads_fq]))
     n_h2d, n_page = kbench.h2d(per)
     copies = {k: v[1] for k, v in per.items() if k.startswith("Memcpy")}
-    say(f"[6] gather launches {launches['gather']}, one a fill launch; "
-        f"profiled rerun: {n_h2d} host-to-device copies, {n_page} from "
-        f"pageable memory ({copies}), gather launches "
-        f"{_build.LAUNCHES['gather']}, device busy {busy:.1f} of "
-        f"{pwall:.1f} ms")
-
-    # ---- 2 again at the E2E run's median gather launch
-    Ba, Bb, La, Lb = shapes[len(shapes) // 2]
-    stores, sides = [], []
-    for Bx, Lx in ((Ba, La), (Bb, Lb)):
-        f, sx = kbench.gather_side(rng, Lx, Bx, kinds=("residue",))
-        stores.append(torch.from_numpy(cuda_gather.pad_store(f)).to(dev))
-        sides.append(sx)
-    gms, gwms, _ = kbench.gather_times(torch, stores, sides, [La, Lb])
-    say(f"[2] gather at the E2E median launch ({Ba} + {Bb} rows, L {La} / "
-        f"{Lb}; median of {len(shapes)} launches): equal to plain; kernel "
-        f"{gms:.5f} ms device time, wrapper {gwms:.5f} ms a call on {card}")
+    say(f"[6] profiled rerun: {n_h2d} host-to-device copies, {n_page} from "
+        f"pageable memory ({copies}), fused fill launches "
+        f"{_build.LAUNCHES['fused']} of {_build.LAUNCHES['fill']} fills, "
+        f"gather launches {_build.LAUNCHES['gather']}, device busy "
+        f"{busy:.1f} of {pwall:.1f} ms")
 
     # ---- 4b again at the E2E run's duo launch size (a duo batch's one
     # traced fill: TRACED_FILL_B of the duo run): the fused fill against
@@ -1111,27 +1307,26 @@ def main():
     if not batches:
         fail("real size: no traced fill launch")
     Bd = batches[len(batches) // 2]
-    run_k, run_p, summ, dargs, dnb, window = duo_case(Bd, 99)
-    pa = pr["affine"]
-    dms = kbench.device_ms(torch, run_k, calls=40)
-    fms = kbench.device_ms(torch, lambda: cuda_fill.fill_cuda(
-        pa, 64, dnb, False, *dargs), calls=40)
-    got = run_k()
-    _, dwms = timed(torch, run_k, 3, kbench.WRAP_CALLS)
-    want, dpms = timed(torch, run_p, 3)
-    same_duo(Bd, got, want, summ)
+    case = duo_case(Bd, 99)
+    dms = kbench.device_ms(torch, case["store"], calls=40)
+    fms = kbench.device_ms(torch, case["bare"], calls=40)
+    got = case["store"]()
+    _, dwms = timed(torch, case["store"], 3, kbench.WRAP_CALLS)
+    want, dpms = timed(torch, case["plain"], 3)
+    same_duo(Bd, got, want, case["summ"])
     # D1's own work, the window: its plain version on the kernel's down
     # maxima (on the card), its bound from the bytes and operations it
     # adds to the fill; its device time the fused fill's less the same
     # fill's without the epilogue
-    wpms = kbench.device_ms(torch, lambda: window(got[0])[0], calls=40)
+    wpms = kbench.device_ms(torch, lambda: case["window"](got[0])[0],
+                            calls=40)
     stats["duo"].update(max_abs_err=err["duo"], ms=dms - fms,
                         plain_ms=wpms, library_ms=None, fused_fill_ms=dms,
                         fill_only_ms=fms, fused_fill_plain_ms=dpms,
                         **bound(DUO_BYTES * Bd, DUO_OPS * Bd))
     say(f"[4b] duo epilogue at the E2E median duo launch (B={Bd}, ~300-base "
-        f"downs): equal to plain; the fused fill {dms:.5f} ms device time, "
-        f"the same fill without the epilogue {fms:.5f} ms (epilogue "
+        f"downs): equal to plain; the store-mode fill with it {dms:.5f} ms "
+        f"device time, the same fill without it {fms:.5f} ms (epilogue "
         f"{dms - fms:+.5f} ms; the window's plain version {wpms:.5f} ms "
         f"device time; {show(stats['duo'])}), the fused fill's wrapper "
         f"{dwms:.5f} ms a call, its plain version (fill_plain, then "
@@ -1164,7 +1359,55 @@ def main():
         f" {show(walk_bound(sk))}) on {card}")
     stats["fill"]["max_abs_err"] = err["fill"]
     stats["dtrace"]["max_abs_err"] = err["dtrace"]
-    del got, rk, sk, want20, plain20, args20
+
+    # ---- D2 before and after, on phase 3's 20 kb problems and at the E2E
+    # run's median store-mode launch: K1 in store mode against rows mode
+    # on the same problems (ns/step, in turns rows, store, store, rows),
+    # and one launch against gather_pair + fill (device time); results
+    # held equal word for word (kbench.fused_times)
+    case20 = kbench.fused_case(torch, *kbench.pairs(band, 7, 128, 20000))
+    d2 = {}
+    for trace in (False, True):
+        d2[trace], got = kbench.fused_times(torch, p, 64, case20, trace)
+        r = d2[trace]
+        say(f"[6] D2 W=64 -xpacbio B=128 L=20kb trace={trace}: store mode "
+            f"== rows mode == gather + fill, word for word; K1 ns/step "
+            f"rows {fmt(r['rows_ns_per_step'])}, store "
+            f"{fmt(r['store_ns_per_step'])} (in turns; store/rows "
+            f"{sum(r['store_ms']) / sum(r['rows_ms']):.4f}); D2 device "
+            f"time two launches {r['two_launch_ms']:.5f} ms, one launch "
+            f"{r['one_launch_ms']:.5f} ms on {card}")
+    rows20, (sa20, sb20, desc20, B20, La20, Lb20) = case20
+    _, gpms = timed(torch, lambda: cuda_gather.gather_pair_plain(
+        sa20, sb20, desc20, B20, La20, Lb20), 3)
+    res = got[0]
+    stats["fused"].update(
+        max_abs_err=err["fused"], ms=sum(d2[True]["store_ms"]) / 2,
+        plain_ms=gpms + stats["fill"]["plain_ms"], library_ms=None,
+        **fused_bound(res, rows20[1], rows20[3], 64, True),
+        rows_ms=sum(d2[True]["rows_ms"]) / 2,
+        untraced_ms=sum(d2[False]["store_ms"]) / 2,
+        untraced_rows_ms=sum(d2[False]["rows_ms"]) / 2,
+        two_launch_ms={str(k): v["two_launch_ms"] for k, v in d2.items()},
+        one_launch_ms={str(k): v["one_launch_ms"] for k, v in d2.items()})
+    say(f"[6] D2 traced B=128 L=20kb: the plain D2 (gather_pair_plain "
+        f"{gpms:.1f} ms, then the plain traced fill of phase 3) "
+        f"{stats['fused']['plain_ms']:.1f} ms; {show(stats['fused'])}")
+    if not fshapes:
+        fail("real size: no store-mode fill launch")
+    Bm, Lam, Lbm, Wm, trm = fshapes[len(fshapes) // 2]
+    Bm = min(Bm, 128)
+    n = max(100, int(min(Lam, Lbm) * 0.8) - 256)
+    case = kbench.fused_case(torch, *kbench.pairs(band, 11, Bm, n), Lam, Lbm)
+    r, _ = kbench.fused_times(torch, p, Wm, case, trm)
+    stats["fused"]["e2e_median"] = r
+    say(f"[6] D2 at the E2E median store-mode launch (B={Bm}, L {Lam} / "
+        f"{Lbm}, W={Wm}, trace={trm}; median of {len(fshapes)} launches; "
+        f"~{n}-base problems): K1 ns/step rows {fmt(r['rows_ns_per_step'])}, "
+        f"store {fmt(r['store_ns_per_step'])}; D2 device time two launches "
+        f"{r['two_launch_ms']:.5f} ms, one launch {r['one_launch_ms']:.5f} "
+        f"ms on {card}")
+    del got, rk, sk, want20, plain20, args20, case20, rows20, case
 
     # ---- 7: the probes' entry point, then the step timer at B=1024
     from minialign_tpu_torch import probes

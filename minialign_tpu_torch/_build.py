@@ -11,9 +11,10 @@ LAUNCHES counts kernel launches per kernel; each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels. TRACED_FILL_B lists the
 problems of each traced fill launch (the launch size the fill and walk
-kernels see on the main path), GATHER_SHAPES the rows and row lengths
-of each side of each gather launch. With $MINIALIGN_LAUNCH_LOG set to a
-directory, a process writes its LAUNCHES there at exit
+kernels see on the main path), FUSED_SHAPES the problems, row lengths,
+band width and tracing of each store-mode fill launch. With
+$MINIALIGN_LAUNCH_LOG set to a directory, a process writes its
+LAUNCHES there at exit
 (launches.<pid>.json), so that a run whose kernels launch in worker
 processes (the CLI's -tN) can count them (worker_launches).
 """
@@ -42,14 +43,17 @@ ARCH = "arch=compute_90a,code=sm_90a"
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
 
-# the mapper's kernels ("duo": the fill's duo epilogue, counted once a
-# fused launch), the sharded index's lookup (parallel/), then the step-mix
+# the mapper's kernels ("fused": a fill that reads its windows from the
+# sequence stores, D2, counted as a fill too; "duo": the fill's duo
+# epilogue, counted once a launch that runs it), the sharded index's
+# lookup (parallel/), then the step-mix
 # probes P1-P4 (probes/), and the probes' launch floor, an empty kernel
 # (probes/_common.launch_floor: kbench.py only)
-LAUNCHES = {"fill": 0, "gather": 0, "dtrace": 0, "duo": 0, "lookup": 0,
+LAUNCHES = {"fill": 0, "fused": 0, "gather": 0, "dtrace": 0, "duo": 0,
+            "lookup": 0,
             "p1": 0, "p2": 0, "p3": 0, "p4": 0, "noop": 0}
 TRACED_FILL_B: list[int] = []
-GATHER_SHAPES: list[tuple[int, int, int, int]] = []   # (Ba, Bb, La, Lb)
+FUSED_SHAPES: list[tuple] = []        # (B, La, Lb, W, trace)
 BUILD_LOG = ""        # nvcc's output of the last build (ptxas -v lines)
 
 _lib = None
@@ -63,6 +67,9 @@ _SIGS = {
     "fill_launch": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
                     _P],
+    "fill_store_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _LL, _P],
     "gather_pair_launch": [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _P, _P,
                            _P],
     "dtrace_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P,
@@ -156,9 +163,9 @@ def count_traced_fill(batch: int) -> None:
         TRACED_FILL_B.append(batch)
 
 
-def count_gather(shape: tuple[int, int, int, int]) -> None:
+def count_fused(shape: tuple) -> None:
     with _lock:
-        GATHER_SHAPES.append(shape)
+        FUSED_SHAPES.append(shape)
 
 
 def reset_counts() -> None:
@@ -166,7 +173,7 @@ def reset_counts() -> None:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
         TRACED_FILL_B.clear()
-        GATHER_SHAPES.clear()
+        FUSED_SHAPES.clear()
 
 
 def _log_launches(log_dir: str) -> None:

@@ -59,6 +59,34 @@
 // ~112 bytes a problem, so a launch of its own would cost more than its
 // work; here it costs none, and the step loop does not see it.
 //
+// The store source (D2): a launch reads its windows either from (B, L)
+// rows (rows mode: the sharded fill, kbench, the tests) or straight from
+// the flat reference and query stores through the batch's packed
+// descriptor block (store mode: the engine's every fill). Store mode is
+// minialign_tpu/extend.py:651-669 (FillEngine._fused_fn, both store-window
+// gathers and the fill in one dispatch) as one launch: the window loads
+// apply the gather's contract (csrc/gather.cu, the JAX twin
+// minialign_tpu/extend.py:499-523) cut at the row length L_side that the
+// two-launch path would have gathered, so the kernel sees the bytes of
+// gather_pair's rows and nothing past them; it is held against the plain
+// D2 (gather_pair_plain, then fill_plain) and against the rows-mode
+// kernel on gather_pair's rows. The loads stay off the step chain (the
+// next block's window is loaded during this one). Two store instances:
+// LINEAR, when no side wraps or starts before its segment (the caller
+// knows it from the rows it packed; every batch of a linear reference),
+// reads each side as a row, p + start with its cap, segment end and L
+// folded into one column limit, through the rows-mode loader, its row
+// pointers and limits held opaque in registers; GENERAL (circular
+// references) takes any row, a wrapped side's window through a call of
+// its own, one 64-bit modulo a window and a compare-and-subtract a byte.
+// The step loop is the same code in every instance, but ptxas schedules
+// it by what surrounds it: arrangements of the loads that kept a side's
+// fields in registers across the loop or branched on them before the
+// loads cost the traced step up to 35% (PERF.md §6). On an H100 80GB
+// HBM3 at 700 W (kbench.py --fused, B=128 x 20 kb, in turns with rows
+// mode): the LINEAR instance's traced step 117.2-117.5 ns against rows
+// mode's 124.9-125.3, its untraced step 84.8-85.6 against 85.5-86.2.
+//
 // Trace layout (the JAX package's, unchanged): masks[b][blk][s][r] holds
 // the 6-bit codes of lanes r + 16 f at bits [8 f, 8 f + 6).
 
@@ -90,12 +118,29 @@ struct Geo {
   static constexpr int TC = C / NL, KC = C % NL;   // its thread and slot
 };
 
+// One side of one problem in store mode, p = store + base. The window
+// byte at column col is (the gather's contract, cut at L)
+//   (unsigned)col < lim ? p[idx] : NCODE
+//   no wrap:  idx = max(start + col, 0),
+//             lim = min(L, cap, seglen - start)
+//   wrap > 0: idx = min(floor_mod(start + col, wrap), seglen - 1),
+//             lim = min(L, cap)
+//   and lim = 0 when seglen <= 0. A negative column (the first windows
+//   start at ihead - W) is NCODE, as the gather never made a column < 0;
+//   a negative start without wrap reads store[base], as the gather does.
+struct Side {
+  const int8_t* p;
+  int start, lim, wrap, last;   // last = seglen - 1
+};
+
 template <int W>
 struct Smem {
   int sub[25];
   int8_t sa[Geo<W>::WIN];    // a[abase + x]
   int8_t sb5[Geo<W>::WIN];   // 5 * b[bbase + x]
   uint8_t code[BLK * W];     // the block's cell codes: [s][lane]
+  Side side[2];              // store mode: the problem's two sides (their
+                             // p is kept in registers too)
 };
 
 template <int W>
@@ -145,16 +190,104 @@ __device__ __forceinline__ void scores(const Smem<W>& sm, int ihead, int p,
   }
 }
 
+// Where a launch reads its windows. Rows mode (desc null): a (B, LA) and
+// a (B, LB) int8 tensor and the lengths alen, blen. Store mode: a and b
+// are the flat reference and query stores, desc the batch's packed
+// descriptor block (dp/cuda_gather.py:pack_desc, R = 2B rows: side a's B
+// rows, then side b's; int32 words: base (int64) [2R], then start, cap,
+// seglen, wrap, elen [R each]), LA and LB the row lengths the two-launch
+// path would have gathered; the lengths are the block's elen.
+struct Src {
+  const int8_t* a;
+  const int32_t* alen;
+  int LA;
+  const int8_t* b;
+  const int32_t* blen;
+  int LB;
+  const int32_t* desc;
+};
+
 // row[base + x] for this thread's x = t + 32 m, NCODE outside the row
+// (rows mode)
 template <int W>
-__device__ __forceinline__ void load_window(const int8_t* __restrict__ row,
-                                            int L, int base, int t,
-                                            int* r) {
+__device__ __forceinline__ void load_rows(const int8_t* __restrict__ row,
+                                          int L, int base, int t, int* r) {
 #pragma unroll
   for (int m = 0; m < Geo<W>::NWIN; ++m) {
     const int x = t + 32 * m, idx = base + x;
     r[m] = (x < Geo<W>::WIN && idx >= 0 && idx < L) ? __ldg(row + idx)
                                                       : NCODE;
+  }
+}
+
+// side s (0: a, 1: b) of problem prob in store mode, from its store src
+// and its row of the packed block desc (B problems), at row length L;
+// len gets the problem's length on that side (the row's elen)
+__device__ __forceinline__ Side side_of(const int8_t* src, int L,
+                                        const int32_t* desc, int s, int prob,
+                                        int B, int& len) {
+  {
+    const int R = 2 * B, r = s * B + prob;
+    const long long base = reinterpret_cast<const long long*>(desc)[r];
+    const int32_t* f = desc + 2 * R;
+    const int start = f[r], cap = f[R + r], seglen = f[2 * R + r];
+    const int wrap = f[3 * R + r];
+    len = f[4 * R + r];
+    long long lim = min(L, cap);
+    if (wrap <= 0) lim = min(lim, (long long)seglen - start);
+    if (seglen <= 0 || lim < 0) lim = 0;
+    return Side{src + base, start, (int)lim, wrap, seglen - 1};
+  }
+}
+
+// A wrapped side's window (circular references), its bytes packed a
+// byte a column: a call of its own, so that its modulo's registers stay
+// out of the step loop's. The window's first index is wrapped once; a
+// byte's is at most one wrap further unless the wrap is shorter than
+// the window.
+template <int W>
+__device__ __noinline__ uint32_t load_wrapped(const Side s, int base,
+                                              int t) {
+  using G = Geo<W>;
+  long long i0 = ((long long)s.start + base) % s.wrap;
+  if (i0 < 0) i0 += s.wrap;
+  const unsigned w = s.wrap;
+  uint32_t v = 0;
+#pragma unroll
+  for (int m = 0; m < G::NWIN; ++m) {
+    const int x = t + 32 * m, col = base + x;
+    unsigned i = (unsigned)i0 + x;
+    if (i >= w) i = w >= (unsigned)G::WIN ? i - w : i % w;
+    const int c = (x < G::WIN && (unsigned)col < (unsigned)s.lim)
+                      ? __ldg(s.p + min((int)i, s.last))
+                      : NCODE;
+    v |= (uint32_t)c << (8 * m);
+  }
+  return v;
+}
+
+// A store-mode side's window bytes at columns base + x for this
+// thread's x = t + 32 m: the side s0 (from shared memory) with its p
+// from a register, as rows mode keeps its row pointers
+template <int W>
+__device__ __forceinline__ void load_window(const int8_t* p, const Side& s0,
+                                            int base, int t, int* r) {
+  using G = Geo<W>;
+  const Side s{p, s0.start, s0.lim, s0.wrap, s0.last};
+  if (s.wrap > 0) {
+    const uint32_t v = load_wrapped<W>(s, base, t);
+#pragma unroll
+    for (int m = 0; m < G::NWIN; ++m) r[m] = (v >> (8 * m)) & 0xff;
+    return;
+  }
+#pragma unroll
+  for (int m = 0; m < G::NWIN; ++m) {
+    const int x = t + 32 * m, col = base + x;
+    // start + col wraps only where the column is outside [0, lim)
+    const int idx = max((int)((unsigned)s.start + col), 0);
+    r[m] = (x < G::WIN && (unsigned)col < (unsigned)s.lim)
+               ? __ldg(s.p + idx)
+               : NCODE;
   }
 }
 
@@ -335,18 +468,38 @@ __device__ void duo_window(const int32_t* __restrict__ geom,
   dsum[2 * ld + b] = mj;
 }
 
-template <int W, bool TRACE>
+// What a launch writes: the results (B each), the trace buffers (null
+// when untraced), and the duo epilogue's geometry block, up descriptor
+// block and down rows (row stride ld), all null (ld 0) but on an
+// untraced duo launch.
+struct Outs {
+  int32_t *score, *i, *j, *steps, *blocks;
+  uint32_t *masks, *dirs;
+  int32_t *iheads, *rprevs;
+  const int32_t* geom;
+  int32_t *up, *dsum;
+  long long ld;
+};
+
+// Where a launch reads its windows (fill_kernel's SRC): rows; the
+// stores, every side a row of its store (LINEAR: no side wraps or starts
+// before its segment, which the caller knows from the rows it packed);
+// the stores, any side (GENERAL: circular references).
+constexpr int ROWS = 0, LINEAR = 1, GENERAL = 2;
+
+template <int W, bool TRACE, int SRC>
 __global__ void __launch_bounds__(32)
 fill_kernel(FillParams P, const int8_t* __restrict__ a,
             const int32_t* __restrict__ alen, int LA,
             const int8_t* __restrict__ b, const int32_t* __restrict__ blen,
-            int LB, int max_blocks, int32_t* __restrict__ o_score,
-            int32_t* __restrict__ o_i, int32_t* __restrict__ o_j,
-            int32_t* __restrict__ o_steps, int32_t* __restrict__ o_blocks,
-            uint32_t* __restrict__ masks, uint32_t* __restrict__ dirs,
-            int32_t* __restrict__ iheads, int32_t* __restrict__ rprevs,
-            const int32_t* __restrict__ geom, int32_t* __restrict__ desc,
-            int32_t* __restrict__ dsum, long long ld) {
+            int LB, const int32_t* __restrict__ desc, int max_blocks,
+            int32_t* __restrict__ o_score, int32_t* __restrict__ o_i,
+            int32_t* __restrict__ o_j, int32_t* __restrict__ o_steps,
+            int32_t* __restrict__ o_blocks, uint32_t* __restrict__ masks,
+            uint32_t* __restrict__ dirs, int32_t* __restrict__ iheads,
+            int32_t* __restrict__ rprevs, const int32_t* __restrict__ geom,
+            int32_t* __restrict__ up, int32_t* __restrict__ dsum,
+            long long ld) {
   using G = Geo<W>;
   constexpr int NL = G::NL;
   constexpr int c = G::C;
@@ -354,8 +507,37 @@ fill_kernel(FillParams P, const int8_t* __restrict__ a,
   const int t = threadIdx.x;
   const int prob = blockIdx.x;
   if (t < 25) sm.sub[t] = P.sub[t];
+  // the problem's rows and their lengths. LINEAR: each side is the row
+  // p + start of lim columns. GENERAL: each side's p in the registers
+  // that hold the row pointers and the rest in shared memory (held in
+  // registers across the step loop they cost the loop its schedule).
   const int8_t* arow = a + (size_t)prob * LA;
   const int8_t* brow = b + (size_t)prob * LB;
+  int la = LA, lb = LB;
+  int na_ = 0, nb_ = 0;   // store mode: the problem's lengths
+  if constexpr (SRC != ROWS) {
+    const Side xa = side_of(a, LA, desc, 0, prob, gridDim.x, na_);
+    const Side xb = side_of(b, LB, desc, 1, prob, gridDim.x, nb_);
+    if constexpr (SRC == LINEAR) {
+      arow = xa.p + xa.start;
+      brow = xb.p + xb.start;
+      la = xa.lim;
+      lb = xb.lim;
+      // opaque to the compiler, so kept in registers: without this it
+      // rebuilt them from the parameters (constant and uniform
+      // registers) at every window load, and the step loop's schedule
+      // lost 5% untraced and 6% traced (PERF.md §6)
+      asm volatile("" : "+l"(arow), "+l"(brow), "+r"(la), "+r"(lb));
+    } else {
+      arow = xa.p;
+      brow = xb.p;
+      if (t == 0) {
+        sm.side[0] = xa;
+        sm.side[1] = xb;
+      }
+      __syncwarp();
+    }
+  }
   const int fl = P.floor_;
 
   int q[NL];   // the thread's lanes (idle threads alias lane W - 1)
@@ -389,15 +571,22 @@ fill_kernel(FillParams P, const int8_t* __restrict__ a,
   st.bi = 0;
   st.cdrop = -128;
   int nsteps = 0, nblk = 0;
-  const int plim = min(alen[prob] + blen[prob] + 2 * TAIL_N,
-                       max_blocks * BLK - 2);
+  const int plim = SRC != ROWS
+                       ? min(na_ + nb_ + 2 * TAIL_N, max_blocks * BLK - 2)
+                       : min(alen[prob] + blen[prob] + 2 * TAIL_N,
+                             max_blocks * BLK - 2);
 
   // the first block's window is based at its own start; every later
   // block's at the previous block's start, which covers it
   int abase = st.ihead - W, bbase = st.p - st.ihead + 1;
   int ra[G::NWIN], rb[G::NWIN];
-  load_window<W>(arow, LA, abase, t, ra);
-  load_window<W>(brow, LB, bbase, t, rb);
+  if constexpr (SRC == GENERAL) {
+    load_window<W>(arow, sm.side[0], abase, t, ra);
+    load_window<W>(brow, sm.side[1], bbase, t, rb);
+  } else {
+    load_rows<W>(arow, la, abase, t, ra);
+    load_rows<W>(brow, lb, bbase, t, rb);
+  }
 
   for (int blk = 0; blk < max_blocks; ++blk) {
     const size_t bi = (size_t)prob * max_blocks + blk;
@@ -412,8 +601,13 @@ fill_kernel(FillParams P, const int8_t* __restrict__ a,
     }
     __syncwarp();
     const int na = st.ihead - W, nb = st.p - st.ihead + 1;
-    load_window<W>(arow, LA, na, t, ra);   // the next block's window
-    load_window<W>(brow, LB, nb, t, rb);
+    if constexpr (SRC == GENERAL) {          // the next block's window
+      load_window<W>(arow, sm.side[0], na, t, ra);
+      load_window<W>(brow, sm.side[1], nb, t, rb);
+    } else {
+      load_rows<W>(arow, la, na, t, ra);
+      load_rows<W>(brow, lb, nb, t, rb);
+    }
     if (TRACE && t == 0) {
       iheads[bi] = st.ihead;
       rprevs[bi] = st.rprev;
@@ -474,75 +668,102 @@ fill_kernel(FillParams P, const int8_t* __restrict__ a,
     o_blocks[prob] = nblk;
     if constexpr (!TRACE) {
       if (geom != nullptr)
-        duo_window(geom, desc, dsum, ld, prob, gridDim.x, bv, oi, oj);
+        duo_window(geom, up, dsum, ld, prob, gridDim.x, bv, oi, oj);
     }
   }
 }
 
-template <int W, bool TRACE>
-void launch(const FillParams& P, const int8_t* a, const int32_t* alen,
-            int la, const int8_t* b, const int32_t* blen, int lb, int B,
-            int max_blocks, int32_t* o_score, int32_t* o_i, int32_t* o_j,
-            int32_t* o_steps, int32_t* o_blocks, uint32_t* masks,
-            uint32_t* dirs, int32_t* iheads, int32_t* rprevs,
-            const int32_t* geom, int32_t* desc, int32_t* dsum, long long ld,
-            cudaStream_t st) {
-  fill_kernel<W, TRACE><<<B, 32, 0, st>>>(
-      P, a, alen, la, b, blen, lb, max_blocks, o_score, o_i, o_j, o_steps,
-      o_blocks, masks, dirs, iheads, rprevs, geom, desc, dsum, ld);
+template <int SRC>
+int launch(const void* params, const Src& src, int B, int W, int max_blocks,
+           int trace, const Outs& o, void* stream) {
+  if (o.geom != nullptr &&
+      (trace || o.up == nullptr || o.dsum == nullptr || o.ld < B ||
+       ((uintptr_t)o.geom | (uintptr_t)o.up) % 8))
+    return (int)cudaErrorInvalidValue;
+  if (W != 16 && W != 32 && W != 64) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  FillParams P;
+  std::memcpy(&P, params, sizeof(P));
+  auto st = static_cast<cudaStream_t>(stream);
+#define FILL_CASE(WW, TT)                                                 \
+  fill_kernel<WW, TT, SRC><<<B, 32, 0, st>>>(                          \
+      P, src.a, src.alen, src.LA, src.b, src.blen, src.LB, src.desc,     \
+      max_blocks, o.score, o.i, o.j, o.steps, o.blocks, o.masks, o.dirs, \
+      o.iheads, o.rprevs, o.geom, o.up, o.dsum, o.ld)
+  if (W == 64) {
+    if (trace) FILL_CASE(64, true); else FILL_CASE(64, false);
+  } else if (W == 32) {
+    if (trace) FILL_CASE(32, true); else FILL_CASE(32, false);
+  } else {
+    if (trace) FILL_CASE(16, true); else FILL_CASE(16, false);
+  }
+#undef FILL_CASE
+  return (int)cudaGetLastError();
+}
+
+Outs outs(void* o_score, void* o_i, void* o_j, void* o_steps,
+          void* o_blocks, void* masks, void* dirs, void* iheads,
+          void* rprevs, const void* geom, void* up, void* dsum,
+          long long ld) {
+  return Outs{static_cast<int32_t*>(o_score), static_cast<int32_t*>(o_i),
+              static_cast<int32_t*>(o_j), static_cast<int32_t*>(o_steps),
+              static_cast<int32_t*>(o_blocks), static_cast<uint32_t*>(masks),
+              static_cast<uint32_t*>(dirs), static_cast<int32_t*>(iheads),
+              static_cast<int32_t*>(rprevs),
+              static_cast<const int32_t*>(geom), static_cast<int32_t*>(up),
+              static_cast<int32_t*>(dsum), ld};
 }
 
 }  // namespace
 
-// geom, desc, dsum, ld: the duo epilogue's geometry block, up descriptor
-// block and down rows (row stride ld), all null (ld 0) but on an
-// untraced duo launch; geom and desc 8-byte aligned (their int64 bases).
+// Rows mode. geom, up, dsum, ld: the duo epilogue's geometry block, up
+// descriptor block and down rows (row stride ld), all null (ld 0) but on
+// an untraced duo launch; geom and up 8-byte aligned (their int64 bases).
 extern "C" int fill_launch(const void* a, const void* alen, int la,
                            const void* b, const void* blen, int lb, int B,
                            int W, int max_blocks, int trace,
                            const void* params, void* o_score, void* o_i,
                            void* o_j, void* o_steps, void* o_blocks,
                            void* masks, void* dirs, void* iheads,
-                           void* rprevs, const void* geom, void* desc,
+                           void* rprevs, const void* geom, void* up,
                            void* dsum, long long ld, void* stream) {
-  if (geom != nullptr &&
-      (trace || desc == nullptr || dsum == nullptr || ld < B ||
-       ((uintptr_t)geom | (uintptr_t)desc) % 8))
+  const Src src{static_cast<const int8_t*>(a),
+                static_cast<const int32_t*>(alen), la,
+                static_cast<const int8_t*>(b),
+                static_cast<const int32_t*>(blen), lb, nullptr};
+  return launch<ROWS>(params, src, B, W, max_blocks, trace,
+                       outs(o_score, o_i, o_j, o_steps, o_blocks, masks,
+                            dirs, iheads, rprevs, geom, up, dsum, ld),
+                       stream);
+}
+
+// Store mode (D2 as one launch): problem b's sides are rows b and B + b
+// of desc, a packed block of R = 2B rows (8-byte aligned), read from
+// store_a and store_b at row lengths La and Lb; general 0 promises that
+// no side wraps or starts before its segment (the LINEAR instance reads
+// each side as a row), else GENERAL; the rest as fill_launch.
+extern "C" int fill_store_launch(const void* store_a, const void* store_b,
+                                 const void* desc, int R, int La, int Lb,
+                                 int general, int B, int W, int max_blocks,
+                                 int trace,
+                                 const void* params, void* o_score,
+                                 void* o_i, void* o_j, void* o_steps,
+                                 void* o_blocks, void* masks, void* dirs,
+                                 void* iheads, void* rprevs,
+                                 const void* geom, void* up, void* dsum,
+                                 long long ld, void* stream) {
+  if (desc == nullptr || (uintptr_t)desc % 8 || R != 2 * B || La < 0 ||
+      Lb < 0)
     return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaSuccess;
-  FillParams P;
-  std::memcpy(&P, params, sizeof(P));
-  auto A = static_cast<const int8_t*>(a);
-  auto Bs = static_cast<const int8_t*>(b);
-  auto al = static_cast<const int32_t*>(alen);
-  auto bl = static_cast<const int32_t*>(blen);
-  auto os = static_cast<int32_t*>(o_score);
-  auto oi = static_cast<int32_t*>(o_i);
-  auto oj = static_cast<int32_t*>(o_j);
-  auto on = static_cast<int32_t*>(o_steps);
-  auto ob = static_cast<int32_t*>(o_blocks);
-  auto m = static_cast<uint32_t*>(masks);
-  auto d = static_cast<uint32_t*>(dirs);
-  auto ih = static_cast<int32_t*>(iheads);
-  auto rp = static_cast<int32_t*>(rprevs);
-  auto gm = static_cast<const int32_t*>(geom);
-  auto dc = static_cast<int32_t*>(desc);
-  auto ds = static_cast<int32_t*>(dsum);
-  auto st = static_cast<cudaStream_t>(stream);
-#define FILL_CASE(WW, TT)                                                   \
-  launch<WW, TT>(P, A, al, la, Bs, bl, lb, B, max_blocks, os, oi, oj, on, \
-                 ob, m, d, ih, rp, gm, dc, ds, ld, st)
-  if (W == 64) {
-    if (trace) FILL_CASE(64, true); else FILL_CASE(64, false);
-  } else if (W == 32) {
-    if (trace) FILL_CASE(32, true); else FILL_CASE(32, false);
-  } else if (W == 16) {
-    if (trace) FILL_CASE(16, true); else FILL_CASE(16, false);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef FILL_CASE
-  return (int)cudaGetLastError();
+  const Src src{static_cast<const int8_t*>(store_a), nullptr, La,
+                static_cast<const int8_t*>(store_b), nullptr, Lb,
+                static_cast<const int32_t*>(desc)};
+  const Outs o = outs(o_score, o_i, o_j, o_steps, o_blocks, masks, dirs,
+                      iheads, rprevs, geom, up, dsum, ld);
+  return general ? launch<GENERAL>(params, src, B, W, max_blocks, trace, o,
+                                   stream)
+                 : launch<LINEAR>(params, src, B, W, max_blocks, trace, o,
+                                  stream);
 }
 
 extern "C" const char* cuda_error_string(int rc) {

@@ -285,6 +285,32 @@ def fill(p: ScoreParams, W: int, max_blocks: int, trace: bool,
     return res, desc
 
 
+def fill_store(p: ScoreParams, W: int, max_blocks: int, trace: bool,
+               store_a: torch.Tensor, store_b: torch.Tensor,
+               desc: torch.Tensor, B: int, La: int, Lb: int, duo=None,
+               general: bool = True):
+    """D2: the fill of B problems whose sides are rows b and B + b of the
+    packed descriptor block desc (cuda_gather.pack_desc), read from the
+    flat stores store_a and store_b at row lengths La and Lb, with the
+    block's elen as their lengths; results as `fill` gives them on
+    gather_pair's rows. On a CUDA block the kernel reads the windows
+    straight from the stores, one launch (it launches or raises);
+    general=False, when no row wraps or starts before its segment, lets
+    it read every side as a row. On the CPU, the plain D2:
+    gather_pair_plain, then fill_plain (and duo_window_plain when duo is
+    given)."""
+    if desc.device.type == "cuda":
+        from .cuda_fill import fill_store_cuda
+        return fill_store_cuda(p, W, max_blocks, trace, store_a, store_b,
+                               desc, B, La, Lb, duo, general)
+    if desc.device.type != "cpu":
+        raise ValueError(f"no fill for device {desc.device}")
+    from .cuda_gather import desc_fields, gather_pair_plain
+    a, b = gather_pair_plain(store_a, store_b, desc, B, La, Lb)
+    elen = desc_fields(desc)["elen"]
+    return fill(p, W, max_blocks, trace, a, elen[:B], b, elen[B:], duo)
+
+
 def pad_codes(seqs, pad_to: int | None = None) -> tuple[np.ndarray, np.ndarray]:
     """Pack a list of code arrays into an N-padded (B, L) int8 batch."""
     lens = np.asarray([len(s) for s in seqs], np.int32)

@@ -153,6 +153,5 @@ def gather_pair(store_a: torch.Tensor, store_b: torch.Tensor,
                 out_a.data_ptr(),
                 out_b.data_ptr(), _build.stream_of(store_a))
         _build.count("gather")
-        _build.count_gather((Ba, R - Ba, La, Lb))
         _build.check(lib, rc, "gather kernel")
     return out_a, out_b

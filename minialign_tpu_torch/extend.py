@@ -7,7 +7,8 @@ extend_read and helpers); only the imports differ. See that module's
 docstring for the scheduling design and the reference citations.
 
 FillEngine is new: it runs the same requests through the port's
-kernels (gather -> fill -> traceback walk, dp/), on a named device.
+kernels (the fill reading the sequence stores -> traceback walk, dp/),
+on a named device.
 """
 
 from __future__ import annotations
@@ -22,9 +23,8 @@ from .chain import (_u, _v, chain_seeds, collect_seeds, coords_to_xy,
                     seed_round)
 from .device import resolve_device
 from .dp import band
-from .dp.band import fill
-from .dp.cuda_gather import (desc_fields, gather_pair, pack_desc, pad_store,
-                             upload)
+from .dp.band import fill_store
+from .dp.cuda_gather import pack_desc, upload
 from .dp.dtrace import SUMMARY_ROWS, dtrace
 from .dp.duo import CAPU_ADD, pack_geom
 from .dp.traceback import TraceResult, _identity, traceback_one
@@ -244,6 +244,12 @@ def _row_len(elen) -> int:
     return max(128, -(-int(elen.max()) // 128) * 128)
 
 
+def _general(side) -> bool:
+    """Whether a side's rows need the fill's general window loads: a row
+    that wraps (a circular reference) or starts before its segment."""
+    return bool((side["wrap"] > 0).any() or (side["start"] < 0).any())
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     """A device result on the host: the engine's only reads (a harvest's
     summary and run-length entries), each one waiting for the stream."""
@@ -287,24 +293,27 @@ class FillEngine:
 
     The reference and the current read batch live on the device as flat
     int8 stores, forward strand then reverse complement per sequence.
-    Each request's two windows are gathered from them (dp/cuda_gather),
-    filled (dp/band.fill) and, for traced requests, walked backward
-    (dp/dtrace), all on the device; only scores, max positions,
-    run-length entries and counters come back to the host.
+    Each request's two windows are read from them by the fill itself
+    (dp/band.fill_store: the fill kernel in store mode, one launch a
+    batch, as the JAX package's _fused_fn is one dispatch) and, for
+    traced requests, walked backward (dp/dtrace), all on the device;
+    only scores, max positions, run-length entries and counters come
+    back to the host.
 
     pipeline.align_batch takes the device-store path when `use_pallas`
     is set (the JAX engine's name for it), so it is always True here,
     and it sends the fused down+up "duo" request (supports_duo) unless
     MINIALIGN_DUO=0. A duo batch (minialign_tpu/extend.py:675-737
     _duo_fn) runs on one stream with no host wait between its fills:
-    one upload (the down descriptor block and the geometry), the down
-    gather and untraced fill, the up windows computed on the device from
-    the down max (dp/duo), the up gather, the traced W=64 up fill and the
-    walk, then one summary read-back that holds the down rows too. The
-    JAX engine's _duo_slow (its two-step fallback for sides its TPU DMA
-    gather refuses: wrap, a negative start, L % 1024, L > 262,144) is not
-    carried: the port's gather takes all of them, and duo requests come
-    only for non-circular references.
+    one upload (the down descriptor block and the geometry), the untraced
+    down fill, whose epilogue computes the up windows from the down max
+    (dp/duo), the traced W=64 up fill reading the up descriptor rows
+    that epilogue wrote, and the walk: three launches, then one summary
+    read-back that holds the down rows too. The JAX engine's _duo_slow
+    (its two-step fallback for sides its TPU DMA gather refuses: wrap, a
+    negative start, L % 1024, L > 262,144) is not carried: the port's
+    store-mode fill takes all of them, and duo requests come only for
+    non-circular references.
     """
 
     use_pallas = True
@@ -319,11 +328,9 @@ class FillEngine:
         self._ref_src = None
 
     def _store(self, parts) -> torch.Tensor:
-        """The flat store on the device, padded for the gather kernel's
-        aligned loads (cuda_gather.pad_store)."""
+        """The flat store on the device."""
         flat = np.concatenate(parts) if parts else np.zeros(1, np.int8)
-        return torch.from_numpy(pad_store(np.asarray(flat, np.int8))).to(
-            self.device)
+        return torch.from_numpy(np.asarray(flat, np.int8)).to(self.device)
 
     def set_index(self, mi) -> None:
         """Upload the reference store (kept while `mi.codes` is the same
@@ -403,7 +410,7 @@ class FillEngine:
         lens = np.asarray([len(x) for x in seqs], np.int32)
         base = np.concatenate([[0], np.cumsum(lens[:-1], dtype=np.int64)])
         flat = np.concatenate(seqs) if seqs else np.zeros(1, np.int8)
-        store = upload(pad_store(flat), self.device)
+        store = upload(flat, self.device)
         zero = np.zeros(len(seqs), np.int32)
         m = dict(base=base, start=zero, cap=lens, seglen=lens, wrap=zero,
                  elen=lens)
@@ -412,21 +419,20 @@ class FillEngine:
                 {k: v[B:] for k, v in m.items()} | {"store": store})
 
     def _batch(self, a_specs, b_specs):
-        """Both sides of one fill batch on the device: (a, alen, b, blen,
-        n_blocks). Every row's fields, the fill's lengths included, go
-        up in one packed block (one non-blocking copy from pinned memory
-        on a card) and one gather launch builds both sides' rows."""
+        """Both sides of one fill batch on the device, as fill_store takes
+        them: ((store_a, store_b, block, B, La, Lb), n_blocks, general).
+        Every row's fields, the fill's lengths included, go up in one
+        packed block (one non-blocking copy from pinned memory on a
+        card), from which the fill reads its windows."""
         if isinstance(a_specs[0], np.ndarray):
             ma, mb = self._raw_meta(a_specs, b_specs)
         else:
             ma, mb = self._side_meta(a_specs), self._side_meta(b_specs)
         blk = upload(pack_desc([ma, mb]), self.device)
-        B = len(a_specs)
-        a, b = gather_pair(ma["store"], mb["store"], blk, B,
-                           _row_len(ma["elen"]), _row_len(mb["elen"]))
-        elen = desc_fields(blk)["elen"]
-        return (a, elen[:B], b, elen[B:],
-                band.max_blocks_for(ma["elen"], mb["elen"]))
+        return ((ma["store"], mb["store"], blk, len(a_specs),
+                 _row_len(ma["elen"]), _row_len(mb["elen"])),
+                band.max_blocks_for(ma["elen"], mb["elen"]),
+                _general(ma) or _general(mb))
 
     def run(self, reqs: list) -> list:
         """reqs: list of (kind, a, b, W) with kind 'down' or 'up', a/b
@@ -465,11 +471,11 @@ class FillEngine:
                     pending.append((sub, kind) + self._duo_batch(
                         [reqs[i] for i in sub], W))
                     continue
-                a, alen_d, b, blen_d, nb = self._batch(
+                side, nb, general = self._batch(
                     [reqs[i][1] for i in sub], [reqs[i][2] for i in sub])
                 if kind == "up":
-                    res, bufs = fill(self.p, W, nb, True, a, alen_d, b,
-                                     blen_d)
+                    res, bufs = fill_store(self.p, W, nb, True, *side,
+                                           general=general)
                     if os.environ.get("MINIALIGN_HOST_TRACE") and \
                             self.device.type == "cpu":
                         # the host walk (minialign_tpu/extend.py:958-986)
@@ -480,7 +486,8 @@ class FillEngine:
                         self.p, W, bufs.masks, bufs.dirs, bufs.iheads,
                         res.max_score, res.max_i, res.max_j))
                 else:
-                    res = fill(self.p, W, nb, False, a, alen_d, b, blen_d)
+                    res = fill_store(self.p, W, nb, False, *side,
+                                     general=general)
                     pending.append((sub, kind, None, torch.stack(
                         [res.max_score, res.max_i, res.max_j])))
         # held: the walk's run-length entries on the device, or the host
@@ -520,23 +527,22 @@ class FillEngine:
         blk = upload(np.concatenate(
             [desc, pack_geom(rvbase, qub, rlen, qlen, cp0, cp1)]),
             self.device)
-        down = blk[:len(desc)]
-        a, b = gather_pair(ma["store"], mb["store"], down, B,
-                           _row_len(ma["elen"]), _row_len(mb["elen"]))
-        elen = desc_fields(down)["elen"]
         nsr = len(SUMMARY_ROWS)
         summ = torch.empty((nsr + 3, B), dtype=torch.int32,
                            device=self.device)
         # the up window from the down max, in the down fill's epilogue
-        _, up = fill(self.p, W, band.max_blocks_for(ma["elen"], mb["elen"]),
-                     False, a, elen[:B], b, elen[B:],
-                     duo=(blk[len(desc):], summ[nsr:]))
+        _, up = fill_store(self.p, W,
+                           band.max_blocks_for(ma["elen"], mb["elen"]),
+                           False, ma["store"], mb["store"], blk[:len(desc)],
+                           B, _row_len(ma["elen"]), _row_len(mb["elen"]),
+                           duo=(blk[len(desc):], summ[nsr:]),
+                           general=_general(ma) or _general(mb))
+        # the up fill reads the up rows that epilogue wrote (stream order):
+        # none wraps, each starts at rlen - tp0 or qlen - tp1 >= 0
         la = np.minimum(2 * qlen + CAPU_ADD, rlen)
-        a, b = gather_pair(self._ref_store, self._q_store, up, B,
-                           _row_len(la), _row_len(qlen))
-        elen = desc_fields(up)["elen"]
-        res, bufs = fill(self.p, 64, band.max_blocks_for(la, qlen), True,
-                         a, elen[:B], b, elen[B:])
+        res, bufs = fill_store(self.p, 64, band.max_blocks_for(la, qlen),
+                               True, self._ref_store, self._q_store, up, B,
+                               _row_len(la), _row_len(qlen), general=False)
         rle, _ = dtrace(self.p, 64, bufs.masks, bufs.dirs, bufs.iheads,
                         res.max_score, res.max_i, res.max_j, out=summ[:nsr])
         return rle, summ

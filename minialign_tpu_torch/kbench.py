@@ -3,7 +3,7 @@ path's shapes, the step-mix probes (P1-P4), and profiles the end-to-end
 run, on one CUDA card.
 
     python minialign_tpu_torch/kbench.py [--root DIR] [--batches 128,8]
-        [--reps 3] [--e2e [--duo 1,0]] [--probes]
+        [--reps 3] [--e2e [--duo 1,0]] [--probes] [--fused]
         [--walls t1,t4,p2,p4 [--wall-reps 2]] [--wall-split 1,2,4]
         [--lookup]
 
@@ -21,13 +21,18 @@ for each B of --batches: the traced and the untraced fill and the walk
 on the traced fill's buffers, each the median of --reps windows of
 CALLS calls timed with CUDA events; then the fill kernels' registers a
 thread, read from the built library (cuobjdump --dump-resource-usage).
+--fused times D2 (fused_bench): the fill reading the stores against the
+fill on rows, ns/step in turns, and one launch against the two-launch
+composition (gather, then fill) as device time, at B=128 x 20 kb and
+at E2E_FUSED, traced and untraced.
 --e2e maps
 bench_e2e.make_workload's 100 x 20 kb reads on a 5 Mb genome with -t1
 -xpacbio, once for each MINIALIGN_DUO setting of --duo (default "1,0":
 the fused duo, then the two-step path): one warm-up, three timed runs
 (host clock, ending in a synchronize), then one under torch.profiler,
-whose device events give the busy share, the time per kernel and the
-copies by direction; that run also counts the FillEngine.run calls,
+whose device events give the busy share, the time per kernel (the
+fill by width, tracing and source: the fused fill reads the stores) and
+the copies by direction; that run also counts the FillEngine.run calls,
 each call's fill launches, the requests by kind (duo problems, downs,
 ups), the duo's failed downs and the device's peak memory.
 
@@ -96,6 +101,7 @@ GATHER_CALLS = 800   # launches a device-time window (the launch queue
                      # holds ~1,000): ~10 ms at 512 x 32 kb
 WRAP_CALLS = 40      # wrapper calls a window (host-bound)
 E2E_GATHER = (1, 1, 40960, 20480)   # rows a side, row lengths
+E2E_FUSED = (1, 40960, 20480)       # problems, row lengths a side
 SIDE = ("base", "start", "cap", "seglen", "wrap")
 PROBE_CALLS = 20     # calls a probe window (probes._common.Report.WINDOW)
 STAGE_CALLS = 2000   # calls a wrapper stage is timed over
@@ -113,6 +119,10 @@ GATHER_KINDS = ("residue", "store_end", "past_store_end", "wrap_lt",
                 "wrap_eq", "wrap_gt", "wrap_tiny", "neg_start",
                 "neg_start_wrap", "cap_0", "cap_gt_L", "seglen_0",
                 "start_ge_seglen")
+# the kinds whose rows neither wrap nor start before their segment: the
+# fill in store mode reads them as rows (band.fill_store's general=False)
+LINEAR_KINDS = tuple(k for k in GATHER_KINDS
+                     if not k.startswith(("wrap", "neg_start")))
 
 
 def mutate(rng, a, err=0.12):
@@ -262,6 +272,26 @@ def duo_fill_case(band, seed, B, n=300):
             for f, v in e.items():
                 c[f][k] = v
     return ab, alen, bb, blen, c
+
+
+def store_case(ab, alen, bb, blen):
+    """The store-mode form of padded rows (band.pad_codes): (store_a,
+    store_b, desc) numpy arrays, each problem's bases laid end to end in
+    its side's store and its rows in the packed descriptor block
+    (cuda_gather.pack_desc: start 0, cap = seglen = elen = its length, no
+    wrap), so that band.fill_store at the rows' widths reads what
+    band.fill reads in the rows."""
+    from minialign_tpu_torch.dp import cuda_gather
+    stores, sides = [], []
+    for rows, lens in ((ab, alen), (bb, blen)):
+        lens = np.asarray(lens, np.int64)
+        stores.append(np.concatenate([r[:n] for r, n in zip(rows, lens)]
+                                     + [np.zeros(1, np.int8)]))
+        base = np.concatenate([[0], np.cumsum(lens[:-1])])
+        zero = np.zeros(len(lens), np.int64)
+        sides.append(dict(base=base, start=zero, cap=lens, seglen=lens,
+                          wrap=zero, elen=lens))
+    return (*stores, cuda_gather.pack_desc(sides))
 
 
 def gather_big(seed=1):
@@ -1267,6 +1297,100 @@ def kernels(torch, pkg, batches, reps, emit):
          **library_registers(_build.LIB, "fill_kernel"))
 
 
+def fused_case(torch, ab, alen, bb, blen, La=None, Lb=None):
+    """One fill batch on the card both ways: (rows-mode arguments (a,
+    alen, b, blen), store-mode arguments (store_a, store_b, desc, B, La,
+    Lb)) from padded rows, widened to La / Lb columns (NCODE) where
+    given; the stores padded for the gather (cuda_gather.pad_store), so
+    that the two-launch composition runs on them too."""
+    from minialign_tpu_torch.dp import band, cuda_gather
+    La, Lb = max(La or 0, ab.shape[1]), max(Lb or 0, bb.shape[1])
+    ab = np.pad(ab, ((0, 0), (0, La - ab.shape[1])),
+                constant_values=band.NCODE)
+    bb = np.pad(bb, ((0, 0), (0, Lb - bb.shape[1])),
+                constant_values=band.NCODE)
+    fa, fb, desc = store_case(ab, alen, bb, blen)
+    dev = torch.device("cuda")
+    rows = [torch.from_numpy(x).to(dev) for x in (ab, alen, bb, blen)]
+    st = [torch.from_numpy(cuda_gather.pad_store(f)).to(dev)
+          for f in (fa, fb)]
+    return rows, (*st, torch.from_numpy(desc).to(dev), len(alen), La, Lb)
+
+
+def fused_times(torch, p, W, case, trace, reps=3, calls=CALLS):
+    """D2 on one fused_case both ways, results held equal word for word:
+    {rows_ms, store_ms}, the rows-mode and the store-mode fill in turns
+    (rows, store, store, rows; each the median of `reps` windows of
+    `calls` calls between CUDA events), their ns/step over the longest
+    problem, and {two_launch_ms, one_launch_ms}, D2 before (gather_pair,
+    then the rows-mode fill) and after (the store-mode fill) as device
+    time (device_ms, `calls` calls a window)."""
+    from minialign_tpu_torch.dp import band, cuda_fill, cuda_gather
+    rows, (sa, sb, desc, B, La, Lb) = case
+    nb = band.max_blocks_for(rows[1].cpu().numpy(), rows[3].cpu().numpy())
+
+    def by_rows():
+        return cuda_fill.fill_cuda(p, W, nb, trace, *rows)
+
+    def by_store():             # store_case's rows are linear
+        return band.fill_store(p, W, nb, trace, sa, sb, desc, B, La, Lb,
+                               general=False)
+
+    def two_launch():
+        a, b = cuda_gather.gather_pair(sa, sb, desc, B, La, Lb)
+        e = cuda_gather.desc_fields(desc)["elen"]
+        return cuda_fill.fill_cuda(p, W, nb, trace, a, e[:B], b, e[B:])
+    got = [by_rows(), by_store(), two_launch()]
+    flat = [[t for part in (g if trace else [g]) for t in part] for g in got]
+    if not all(all(map(torch.equal, flat[0], f)) for f in flat[1:]):
+        raise RuntimeError(f"fill W={W} trace={trace} B={B}: store mode "
+                           f"!= rows mode")
+    ms = {"rows": [], "store": []}
+    for k in ("rows", "store", "store", "rows"):
+        ms[k].append(timed(torch, by_rows if k == "rows" else by_store,
+                           reps, calls)[1])
+    res = got[0][0] if trace else got[0]
+    steps = int(res.n_steps.max())
+    out = dict(B=B, La=La, Lb=Lb, W=W, trace=trace, max_steps=steps,
+               rows_ms=ms["rows"], store_ms=ms["store"],
+               rows_ns_per_step=[t * 1e6 / steps for t in ms["rows"]],
+               store_ns_per_step=[t * 1e6 / steps for t in ms["store"]],
+               two_launch_ms=device_ms(torch, two_launch, reps, calls),
+               one_launch_ms=device_ms(torch, by_store, reps, calls))
+    return out, got[1]
+
+
+def fused_bench(torch, pkg, reps, emit):
+    """D2 (fused_times) at B=128 x 20 kb, chip_smoke's phase 3 set with
+    the -xpacbio scores, traced and untraced, and at E2E_FUSED (the first
+    problems of that set, the rows widened to its lengths) untraced and
+    traced."""
+    from minialign_tpu_torch.dp import band
+    p = combined_scores(band.ScoreParams)
+    ab, alen, bb, blen = pairs(band, 7, 128, 20000)
+    B, La, Lb = E2E_FUSED
+    for case in (fused_case(torch, ab, alen, bb, blen),
+                 fused_case(torch, ab[:B], alen[:B], bb[:B], blen[:B],
+                            La, Lb)):
+        for trace in (False, True):
+            emit(kind="fused", pkg=pkg,
+                 **fused_times(torch, p, 64, case, trace, reps)[0])
+
+
+def kernel_label(name):
+    """A profiler kernel name as the E2E breakdown reports it: the fill
+    by band width, tracing and source (store mode: the fused fill, D2;
+    rows mode, or an older commit's two-argument fill), a kernel by its
+    name and template arguments, anything else (copies, sets) as it is."""
+    m = re.search(r"fill_kernel<(\d+), (true|false)(?:, (\w+))?>", name)
+    if m:
+        src = "fill (rows)" if m.group(3) in (None, "0") else "fused fill"
+        return (f"{src} W={m.group(1)} "
+                f"{'traced' if m.group(2) == 'true' else 'untraced'}")
+    m = re.search(r"::(\w+(?:<[^>]*>)?)\(", name)
+    return m.group(1) if m else name
+
+
 def device_busy(trace_path):
     """(busy ms, wall ms of the traced window, {kernel: [ms, launches]})
     from a chrome trace: device events are the kernels, copies and
@@ -1471,13 +1595,16 @@ def e2e(torch, pkg, emit, duo="1"):
         run()
         walls.append(time.time() - t0)
     runs, kinds, failed = [], {}, [0]
-    engine_run, engine_fill = extend.FillEngine.run, extend.fill
+    # the engine's fill: fill_store, or an older commit's fill on rows
+    fill_name = "fill_store" if hasattr(extend, "fill_store") else "fill"
+    engine_run = extend.FillEngine.run
+    engine_fill = getattr(extend, fill_name)
     mine = threading.local()
     lock = threading.Lock()
 
-    def counted_fill(*args):
+    def counted_fill(*args, **kw):
         mine.n += 1
-        return engine_fill(*args)
+        return engine_fill(*args, **kw)
 
     def counted_run(self, reqs):
         mine.n = 0
@@ -1491,11 +1618,18 @@ def e2e(torch, pkg, emit, duo="1"):
 
     _build.reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    extend.FillEngine.run, extend.fill = counted_run, counted_fill
+    extend.FillEngine.run = counted_run
+    setattr(extend, fill_name, counted_fill)
     try:
         busy, wall, per = profiled(torch, run)
     finally:
-        extend.FillEngine.run, extend.fill = engine_run, engine_fill
+        extend.FillEngine.run = engine_run
+        setattr(extend, fill_name, engine_fill)
+    breakdown = {}
+    for k, (ms, n) in per.items():
+        b = breakdown.setdefault(kernel_label(k), [0.0, 0])
+        b[0] += ms
+        b[1] += n
     batches = sorted(getattr(_build, "TRACED_FILL_B", []))
     n_h2d, n_pageable = h2d(per)
     emit(kind="e2e", pkg=pkg, duo=duo, bases=nbases, first_s=first,
@@ -1509,8 +1643,8 @@ def e2e(torch, pkg, emit, duo="1"):
          peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20,
          host_library=native.available(),
          h2d_copies=n_h2d, h2d_pageable=n_pageable,
-         per_kernel_ms={k: round(v[0], 3) for k, v in per.items()},
-         per_kernel_launches={k: v[1] for k, v in per.items()})
+         breakdown_ms={k: round(v[0], 3) for k, v in breakdown.items()},
+         breakdown_launches={k: v[1] for k, v in breakdown.items()})
 
 
 def main(argv=None):
@@ -1522,6 +1656,9 @@ def main(argv=None):
     ap.add_argument("--duo", default="1,0",
                     help="MINIALIGN_DUO settings of the --e2e maps, in order")
     ap.add_argument("--probes", action="store_true")
+    ap.add_argument("--fused", action="store_true",
+                    help="D2: the fill in store mode against rows mode "
+                    "and the two-launch composition")
     ap.add_argument("--lookup", action="store_true")
     ap.add_argument("--walls", default="",
                     help="CLI walls on the E2E workload: comma-separated "
@@ -1553,6 +1690,8 @@ def main(argv=None):
     batches = [int(x) for x in o.batches.split(",") if x]
     if batches:
         kernels(torch, pkg, batches, o.reps, emit)
+    if o.fused:
+        fused_bench(torch, pkg, o.reps, emit)
     if o.e2e:
         for duo in o.duo.split(","):
             e2e(torch, pkg, emit, duo)

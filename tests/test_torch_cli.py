@@ -95,6 +95,38 @@ def run_golden(name, monkeypatch, tmp_path, duo="1"):
     return got
 
 
+def run_input(name, monkeypatch, tmp_path, device="cpu"):
+    """chip_smoke.QUERY_INPUTS's case `name` through the port's CLI in
+    this process on `device`, its query from stdin (plain or gzipped) or
+    a gzipped file, held to ref_out.sam without @PG. Stdin maps in
+    process (through the threaded source/drain pipeline at -t2), a path
+    at -t2 in min(2, cores) worker processes, which are counted. Returns
+    the output."""
+    import chip_smoke
+    from minialign_tpu_torch import cli
+    _, args, src = {q[0]: q for q in chip_smoke.QUERY_INPUTS}[name]
+    monkeypatch.setenv("MINIALIGN_TORCH_DEVICE", device)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.delenv("MINIALIGN_PROC_WORKERS", raising=False)
+    procs = []
+    align_procs = cli._align_procs
+
+    def counted_procs(o, log, argv, nproc):
+        procs.append(nproc)
+        return align_procs(o, log, argv, nproc)
+    monkeypatch.setattr(cli, "_align_procs", counted_procs)
+    stdin = chip_smoke.query_input(src, str(tmp_path))
+    got = chip_smoke.run_cli(cli, chip_smoke.golden_args(
+        args, DATA, str(tmp_path)), stdin=stdin)
+    with open(f"{DATA}/ref_out.sam") as f:
+        want = f.read()
+    assert chip_smoke.golden_view(got, "pg") == \
+        chip_smoke.golden_view(want, "pg")
+    nproc = min(int(args[0][2:]), os.cpu_count() or 1)
+    assert procs == ([nproc] if stdin is None and nproc > 1 else [])
+    return got
+
+
 @pytest.mark.parametrize("args,golden", [
     (["-t1"], "ref_out.sam"),
     (["-t1", "-xpacbio"], "ref_pacbio.sam"),

@@ -15,6 +15,7 @@ exactly, one dtype of each kind."""
 
 import dataclasses
 import io
+import itertools
 import os
 import sys
 
@@ -211,9 +212,10 @@ def test_gather_pair_kernel_on_edge_cases(L, B, padded, dev):
 def test_cli_golden_on_cuda(name, dev, monkeypatch, tmp_path):
     """Every golden through the port's CLI on the card with the duo on
     (the default), compared as tests/test_golden_sam.py compares it:
-    the fill, gather and walk launched, one gather a fill, the duo
-    kernel on a linear reference. A -tN case's worker processes log
-    their launches (MINIALIGN_LAUNCH_LOG), which count too."""
+    the fill and walk launched, every fill reading the stores (a fused
+    launch) and no gather, the duo kernel on a linear reference. A -tN
+    case's worker processes log their launches (MINIALIGN_LAUNCH_LOG),
+    which count too."""
     from minialign_tpu_torch import cli
     _, args, golden, mode, _, pre = {g[0]: g for g in chip_smoke.GOLDENS}[
         name]
@@ -235,14 +237,119 @@ def test_cli_golden_on_cuda(name, dev, monkeypatch, tmp_path):
     got = run(args)
     workers = _build.worker_launches(str(logs))
     n = {k: v + workers[k] for k, v in _build.LAUNCHES.items()}
-    assert all(n[k] > 0 for k in ("fill", "gather", "dtrace")), n
-    assert n["gather"] == n["fill"]
+    assert all(n[k] > 0 for k in ("fill", "dtrace")), n
+    assert n["fused"] == n["fill"] and n["gather"] == 0, n
     if not any(a.startswith("-c") for a in args):
         assert n["duo"] > 0, n
     with open(f"{DATA}/{golden}") as f:
         want = f.read()
     assert chip_smoke.golden_view(got, mode) == \
         chip_smoke.golden_view(want, mode)
+
+
+@pytest.mark.parametrize("name", [q[0] for q in chip_smoke.QUERY_INPUTS])
+def test_query_input_on_cuda(name, dev, monkeypatch, tmp_path):
+    """The query input paths (stdin plain and gzipped, a gzipped file,
+    -t1 and -t2) through the CLI on the card, held to ref_out.sam
+    without @PG; every fill reads the stores, no gather; the duo on."""
+    from test_torch_cli import run_input
+    monkeypatch.delenv("MINIALIGN_DUO", raising=False)
+    logs = tmp_path / "launches"
+    logs.mkdir()
+    monkeypatch.setenv("MINIALIGN_LAUNCH_LOG", str(logs))
+    _build.reset_counts()
+    run_input(name, monkeypatch, tmp_path, device="cuda")
+    workers = _build.worker_launches(str(logs))
+    n = {k: v + workers[k] for k, v in _build.LAUNCHES.items()}
+    assert n["fill"] > 0 and n["dtrace"] > 0 and n["duo"] > 0, n
+    assert n["fused"] == n["fill"] and n["gather"] == 0, n
+
+
+# ---- D2: the fill reading the stores
+
+
+def _store_rows(sta, stb, blk, B, La, Lb):
+    """gather_pair's rows of a packed block and their lengths, as the
+    two-launch path gave them to the fill."""
+    a, b = cuda_gather.gather_pair(sta, stb, blk, B, La, Lb)
+    e = cuda_gather.desc_fields(blk)["elen"]
+    return a, e[:B], b, e[B:]
+
+
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("W", [16, 32, 64])
+@pytest.mark.parametrize("pname", ["affine", "combined"])
+def test_fill_store_kernel_matches_rows_and_plain(pname, W, trace, dev):
+    """The fill kernel in store mode on every kbench.GATHER_KINDS kind
+    through its general loads, and on the LINEAR_KINDS through its
+    linear ones (two-sided batches of 3 and 64 rows, unequal L a side,
+    padded and unpadded stores): results and trace buffers word for word
+    equal to the rows-mode kernel on gather_pair's rows, and to the plain
+    D2 (gather_pair_plain, then fill_plain); one launch, counted as a
+    fill and a fused launch, no gather."""
+    p = PARAMS[pname]
+    rng = np.random.default_rng(W + trace)
+    for kinds, general in ((kbench.GATHER_KINDS, True),
+                           (kbench.LINEAR_KINDS, False)):
+        for (La, Lb), B in itertools.product(((128, 384), (4096, 128)),
+                                             (3, 64)):
+            (fa, sa), (fb, sb) = (kbench.gather_side(rng, L, B, kinds)
+                                  for L in (La, Lb))
+            blk = torch.from_numpy(cuda_gather.pack_desc([sa, sb])).to(dev)
+            nb = band.max_blocks_for(sa["elen"], sb["elen"])
+            for padded in (True, False):
+                sta, stb = (torch.from_numpy(
+                    cuda_gather.pad_store(f) if padded else f).to(dev)
+                    for f in (fa, fb))
+                _build.reset_counts()
+                got = band.fill_store(p, W, nb, trace, sta, stb, blk, B, La,
+                                      Lb, general=general)
+                assert (_build.LAUNCHES["fill"], _build.LAUNCHES["fused"],
+                        _build.LAUNCHES["gather"]) == (1, 1, 0)
+                rows = cuda_fill.fill_cuda(p, W, nb, trace, *_store_rows(
+                    sta, stb, blk, B, La, Lb))
+                for g, w in zip(got if trace else [got],
+                                rows if trace else [rows]):
+                    assert all(map(torch.equal, g, w))
+            a, b = cuda_gather.gather_pair_plain(sta, stb, blk, B, La, Lb)
+            e = cuda_gather.desc_fields(blk)["elen"]
+            want = band.fill_plain(p, W, nb, trace, a, e[:B], b, e[B:])
+            if trace:
+                assert_fill_equal(got[0], got[1], *want)
+            else:
+                assert_fill_equal(got, None, want, None)
+
+
+@pytest.mark.parametrize("B", [1, 48, 512])
+def test_fill_store_duo_matches_plain(B, dev):
+    """The duo epilogue through the store-mode fill (kbench.duo_fill_case,
+    its rows laid into stores by kbench.store_case, the geometry behind
+    the down block as the engine uploads it): the fill's results equal
+    fill_plain's, the up block and down rows duo_window_plain's; one
+    launch, counted as a fill, a fused and a duo launch."""
+    ab, alen, bb, blen, c = kbench.duo_fill_case(band, B, B)
+    fa, fb, desc = kbench.store_case(ab, alen, bb, blen)
+    g = duo.pack_geom(c["rvbase"], c["qub"], c["rlen"], c["qlen"], c["cp0"],
+                      c["cp1"])
+    nd = len(desc)
+    blk = torch.from_numpy(np.concatenate([desc, g])).to(dev)
+    sta, stb = (torch.from_numpy(f).to(dev) for f in (fa, fb))
+    nb = band.max_blocks_for(alen, blen)
+    p = PARAMS["affine"]
+    summ = torch.full((17, B), -1, dtype=torch.int32, device=dev)
+    _build.reset_counts()
+    res, up = band.fill_store(p, 64, nb, False, sta, stb, blk[:nd], B,
+                              ab.shape[1], bb.shape[1],
+                              duo=(blk[nd:], summ[14:]), general=False)
+    assert (_build.LAUNCHES["fill"], _build.LAUNCHES["fused"],
+            _build.LAUNCHES["duo"]) == (1, 1, 1)
+    args = [torch.from_numpy(x).to(dev) for x in (ab, alen, bb, blen)]
+    want = band.fill_plain(p, 64, nb, False, *args)
+    assert_fill_equal(res, None, want, None)
+    wdesc, dsum = duo.duo_window_plain(want.max_score, want.max_i,
+                                       want.max_j, blk[nd:])
+    assert torch.equal(up, wdesc) and torch.equal(summ[14:], dsum)
+    assert (summ[:14] == -1).all()
 
 
 # ---- D1: the duo
@@ -289,8 +396,9 @@ def _mapped(regs):
 @pytest.mark.parametrize("case", ["reads", "past_262kb"])
 def test_engine_duo_matches_two_step_on_cuda(case, dev, monkeypatch):
     """align_batch on the card with MINIALIGN_DUO=1 (the duo batch: one
-    upload, gather, fill, duo window, gather, fill, walk) and =0 (down,
-    then up): every Reg and Aln field equal. past_262kb maps a 270 kb
+    upload, the down fill with the duo window, the up fill, the walk; the
+    fills read the stores) and =0 (down, then up): every Reg and Aln
+    field equal. past_262kb maps a 270 kb
     read, past the TPU kernels' 2^18-character sides, which the JAX duo
     sends to its two-step _duo_slow."""
     from minialign_tpu_torch import params as tparams
@@ -318,6 +426,8 @@ def test_engine_duo_matches_two_step_on_cuda(case, dev, monkeypatch):
         regs = align_batch(mp, mi, reads, FillEngine(mp.score, device=dev))
         out[env] = (_mapped(regs), dict(_build.LAUNCHES))
     assert out["1"][1]["duo"] > 0 and out["0"][1]["duo"] == 0
+    assert all(n["fused"] == n["fill"] and not n["gather"]
+               for _, n in out.values())
     assert out["1"][0] == out["0"][0]
     assert sum(r is not None for r in out["1"][0]) >= (1 if long else 6)
 
@@ -667,7 +777,8 @@ def test_align_batch_sharded_on_one_card(dev, monkeypatch):
     _build.reset_counts()
     got = shard.align_batch_sharded(mp, mi, reads, [dev, dev])
     assert all(_build.LAUNCHES[k] > 0
-               for k in ("lookup", "fill", "gather", "dtrace"))
+               for k in ("lookup", "fill", "fused", "dtrace"))
+    assert _build.LAUNCHES["gather"] == 0
     assert got == want
 
 

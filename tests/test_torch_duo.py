@@ -441,7 +441,7 @@ def test_one_summary_read_back_per_duo_batch(engine, reads, genome,
     rows together) and then its run-length entries, and nothing between
     its down fill and its up fill."""
     log = []
-    host, fill = extend._host, extend.fill
+    host, fill = extend._host, extend.fill_store
 
     def fill_logged(p, W, nb, trace, *args, **kw):
         log.append(("fill", trace))
@@ -450,7 +450,7 @@ def test_one_summary_read_back_per_duo_batch(engine, reads, genome,
     def host_logged(t):
         log.append(("read", tuple(t.shape)))
         return host(t)
-    monkeypatch.setattr(extend, "fill", fill_logged)
+    monkeypatch.setattr(extend, "fill_store", fill_logged)
     monkeypatch.setattr(extend, "_host", host_logged)
     reqs = _requests(genome, reads, Ws=(32, 32, 32))[:2]
     keys = {r[3:4] + (extend._bucket(engine._spec_len(r[1]) + 224),

@@ -255,8 +255,9 @@ def _engine_run(seqs):
 def test_engine_uploads_once_per_batch(seqs, monkeypatch):
     """FillEngine.run builds each fill batch from one upload of its packed
     block (and, for raw code arrays, one of the batch's store) and one
-    gather launch for both sides; the fill reads its lengths from that
-    block. Both paths give the same results."""
+    store-mode fill (band.fill_store), which reads both sides' windows
+    and its lengths from that block: the engine launches no gather. Both
+    paths give the same results."""
     calls = {"upload": 0, "gather": 0, "fill": 0}
 
     def counted(name, fn):
@@ -267,12 +268,12 @@ def test_engine_uploads_once_per_batch(seqs, monkeypatch):
 
     with monkeypatch.context() as m:
         m.setattr(extend, "upload", counted("upload", extend.upload))
-        m.setattr(extend, "gather_pair", counted("gather",
-                                                 extend.gather_pair))
-        m.setattr(extend, "fill", counted("fill", extend.fill))
+        m.setattr(cuda_gather, "gather_pair",
+                  counted("gather", cuda_gather.gather_pair))
+        m.setattr(extend, "fill_store", counted("fill", extend.fill_store))
         out = _engine_run(seqs)
     assert calls["fill"] == 2        # the two 'down' requests, the 'up'
-    assert calls["gather"] == calls["fill"]
+    assert calls["gather"] == 0
     assert calls["upload"] == (1 if seqs == "store" else 2) * calls["fill"]
     assert all(score > 0 for score, *_ in out)
     assert [tr is not None for *_, tr in out] == [False, True, False]
