@@ -106,6 +106,21 @@ Phases, in order; any failure exits non-zero before the result line:
      walk (extend.host_walk) on copies of the card's trace buffers, of
      that problem and of the edge problems, equal to dtrace's walk; the
      phase's wall and launches
+  11 the device minimizer sketch S1 (csrc/sketch.cu,
+     minialign_tpu_torch.index.sketch_device): (a) the kernel equal to
+     sketch_device_plain on all four arrays, word for word, on kbench's
+     edge cases (every SKETCH_K x SKETCH_W, L from 0 through one and two
+     tiles of positions +-1, random codes with N, all A, an AT run,
+     palindromes), and at w 129 and MAX_W; (b) sketch_torch equal to the
+     port's host sketch (index.sketch.sketch, the native sketch_seq) at
+     the E2E index's k and w on the E2E genome, each of its 100 reads, and
+     a 250 Mb random genome (the size of GRCh38 chr1) made with numpy from
+     SKETCH_SEED; the kernel's launches counted over (b); (c) at 250 Mb
+     the kernel's device time, the wrapper's time a call (upload,
+     kernel, compaction, read-back), the host sketch's time, the plain
+     version's, positions a second, the bound and the peak device memory;
+     (d) python -m minialign_tpu_torch.prewarm on the card, exit 0, with
+     its wall
   8  neither jax nor minialign_tpu imported; the kernels' JSON line,
      then the result line
 
@@ -245,6 +260,8 @@ KERNELS = {
               "minialign_tpu/extend.py:651"),
     "lookup": ("minialign_tpu_torch/csrc/lookup.cu",
                "minialign_tpu/parallel/shard.py:95"),
+    "sketch": ("minialign_tpu_torch/csrc/sketch.cu",
+               "minialign_tpu/index/sketch_jax.py:39"),
     "p1": ("minialign_tpu_torch/csrc/probe_subint32.cu",
            "tests/tools/probe_subint32.py:15"),
     "p2": ("minialign_tpu_torch/csrc/probe_lowprec.cu",
@@ -276,6 +293,25 @@ FILL_OPS_CELL = {False: 13, True: 30}
 WALK_OPS_MOVE = 20
 
 
+# 32-bit integer operations a k-mer position costs the sketch as a
+# function, not as csrc/sketch.cu does it (the kernel rebuilds the k-mer
+# from k codes and rescans the window: ~4k + 4w more): the rolling k-mer
+# 8 (the code's & 3; k0's shift, or and mask; k1's complement, shift and
+# or), the strand and the two selects 3, the CRC's eight table steps 31
+# (an index: the data byte's shift and xor and the mask, the first step
+# without the shift, the last four without the byte; the accumulator's
+# shift and xor; the eight table loads go to the load/store units), the
+# hash's xor and mask 2, the window index (a running p % w) and the
+# strand bit 5, an amortized sliding minimum 15 (van Herk / Gil-Werman:
+# three compare-selects of the 64-bit (h, lo) word and the position a
+# position), and the emission's compares, select and strand bit 8. Rated
+# at the card's INT32 rate (probes._common.INT32_OPS_PER_S).
+SKETCH_OPS = 8 + 3 + 31 + 2 + 5 + 15 + 8
+
+SKETCH_GENOME = 250_000_000    # bases: GRCh38 chr1 has 248,956,422
+SKETCH_SEED = 12
+
+
 def edge_pairs(np, rng):
     """Problems the fill's max reduction and the walk's start must get
     right: a tandem repeat against itself (ties everywhere), b == a, an
@@ -303,10 +339,11 @@ def show(bd):
     return f"bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})"
 
 
-def bound(nbytes, ops):
-    """{bound_ms, bound_by} for nbytes through HBM and ops 32-bit ops."""
-    from minialign_tpu_torch.probes._common import bound_ms
-    tb, to = bound_ms(nbytes, ops)
+def bound(nbytes, ops, ops_per_s=None):
+    """{bound_ms, bound_by} for nbytes through HBM and ops operations at
+    ops_per_s (32-bit ALU operations unless given)."""
+    from minialign_tpu_torch.probes._common import ALU_OPS_PER_S, bound_ms
+    tb, to = bound_ms(nbytes, ops, ops_per_s or ALU_OPS_PER_S)
     return dict(bound_ms=max(tb, to),
                 bound_by="bytes" if tb >= to else "operations")
 
@@ -754,6 +791,147 @@ def phase10(torch, card, ref_fa, reads_fq):
         f"reads three ways in {time.time() - t10:.1f} s; fill "
         f"{total['fill']} (all in store mode), walk {total['dtrace']} "
         f"launches (duo {total['duo']}) on {card}")
+
+
+def phase11(np, torch, card, stats, ref_fa, reads_fq):
+    """The device sketch S1; returns the kernel's launches over (b)."""
+    from minialign_tpu_torch import _build, cli, kbench
+    from minialign_tpu_torch.index import cuda_sketch
+    from minialign_tpu_torch.index import sketch_device as sd
+    from minialign_tpu_torch.index.sketch import sketch
+    from minialign_tpu_torch.io import bseq
+    from minialign_tpu_torch.probes._common import INT32_OPS_PER_S
+    dev = torch.device("cuda", 0)
+    t11 = time.time()
+
+    # (a) the kernel against its plain version on the edge cases
+    rng = np.random.default_rng(11)
+    n_runs = 0
+
+    def same(codes, k, w, what):
+        if not all(map(torch.equal, cuda_sketch.sketch_cuda(codes, k, w),
+                       sd.sketch_device_plain(codes, k, w))):
+            fail(f"sketch kernel != sketch_device_plain: {what}")
+
+    for k in kbench.SKETCH_K:
+        for w in kbench.SKETCH_W:
+            for L in kbench.sketch_lengths(k, w, cuda_sketch.TILE):
+                for kind in kbench.SKETCH_KINDS:
+                    codes = torch.from_numpy(
+                        kbench.sketch_codes(rng, kind, L, k)).to(dev)
+                    same(codes, k, w, f"k={k} w={w} L={L} {kind}")
+                    n_runs += 1
+    for w in (129, cuda_sketch.MAX_W):
+        codes = torch.from_numpy(kbench.sketch_codes(
+            rng, "random", 3 * cuda_sketch.TILE, 15)).to(dev)
+        same(codes, 15, w, f"k=15 w={w}")
+        n_runs += 1
+    torch.cuda.synchronize()
+    say(f"[11a] sketch equal to plain, word for word, on {n_runs} runs: k "
+        f"{kbench.SKETCH_K} x w {kbench.SKETCH_W} at L 0 through two tiles "
+        f"of {cuda_sketch.TILE} positions +-1 "
+        f"({', '.join(kbench.SKETCH_KINDS)}), and w 129 / "
+        f"{cuda_sketch.MAX_W} ({time.time() - t11:.1f} s)")
+
+    # (b) sketch_torch against the host sketch at real size
+    o = cli.Opts()
+    cli.parse_argv(o, ["-xpacbio"])
+    cli.finalize(o)
+    ip, _ = cli.make_params(o)
+    k, w = ip.k, ip.w
+    t0 = time.time()
+    genome = np.random.default_rng(SKETCH_SEED).integers(
+        0, 4, SKETCH_GENOME, dtype=np.int8)
+    gen_s = time.time() - t0
+    seqs = [("E2E genome", x.codes) for x in bseq.read_seqs(ref_fa)]
+    n_reads = 0
+    for x in bseq.read_seqs(reads_fq):
+        seqs.append(("E2E read", x.codes))
+        n_reads += 1
+    seqs.append(("250 Mb genome", genome))
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    got = [sd.sketch_torch(codes, k, w) for _, codes in seqs]
+    launches = _build.LAUNCHES["sketch"]
+    if launches != len(seqs):
+        fail(f"sketch: {launches} launches for {len(seqs)} sequences")
+    occ, host_ms = 0, {}
+    for (name, codes), g in zip(seqs, got):
+        t0 = time.perf_counter()
+        want = sketch(codes, k, w)
+        host_ms[name] = (time.perf_counter() - t0) * 1e3
+        if not all(a.dtype == b.dtype and np.array_equal(a, b)
+                   for a, b in zip(g, want)):
+            fail(f"sketch_torch != the host sketch: {name} "
+                 f"({len(codes)} bases, k={k} w={w})")
+        occ += len(g[0])
+    del got, want
+    say(f"[11b] sketch_torch equal to the host sketch (native sketch_seq) "
+        f"at k={k} w={w}: the E2E genome, its {n_reads} reads and a "
+        f"{SKETCH_GENOME}-base genome (numpy, seed {SKETCH_SEED}, made in "
+        f"{gen_s:.2f} s); {occ} occurrences in all; {launches} launches, "
+        f"one a sequence")
+
+    # (c) timings at 5 Mb (the E2E genome) and 250 Mb
+    res = {}
+    for name, codes in (seqs[0], seqs[-1]):
+        n = len(codes) - k + 1
+        t = torch.from_numpy(codes).to(dev)
+        ms = kbench.device_ms(torch, lambda: cuda_sketch.sketch_cuda(t, k, w),
+                              calls=10 if n > 10**8 else 100)
+        kern = cuda_sketch.sketch_cuda(t, k, w)
+        plain, pms = kbench.timed(torch,
+                                  lambda: sd.sketch_device_plain(t, k, w))
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(kern, plain))
+        if err:
+            fail(f"sketch kernel != sketch_device_plain: {name}, max abs "
+                 f"err {err}")
+        n_occ = int(kern[3].sum())
+        del kern, plain
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sd.sketch_torch(codes, k, w)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sd.sketch_torch(codes, k, w)
+        peak = torch.cuda.max_memory_allocated() - base
+        del t
+        nbytes = len(codes) + 10 * n
+        bd = bound(nbytes, SKETCH_OPS * n, INT32_OPS_PER_S)
+        res[name] = dict(ms=ms, plain_ms=pms, max_abs_err=err, **bd,
+                         wrapper_ms=sorted(walls)[1], host_ms=host_ms[name],
+                         positions=n, occurrences=n_occ, peak_bytes=peak)
+        say(f"[11c] sketch of the {name} ({len(codes)} bases), k={k} w={w}: "
+            f"kernel {ms:.5f} ms device time ({n / ms / 1e6:.1f} G "
+            f"positions/s), sketch_torch {fmt(walls)} ms a call (upload, "
+            f"kernel, compaction, read-back), the host sketch "
+            f"{host_ms[name]:.1f} ms, the plain version {pms:.1f} ms; "
+            f"{show(bd)} ({nbytes} bytes, {SKETCH_OPS} INT32 ops a "
+            f"position); {n_occ} occurrences; sketch_torch peaks at {peak} "
+            f"B of device memory on {card}")
+    stats["sketch"].update(library_ms=None, k=k, w=w,
+                           **res.pop("250 Mb genome"),
+                           e2e_genome=res["E2E genome"])
+
+    # (d) the prewarm entry point on the card
+    env = dict(os.environ, MINIALIGN_TORCH_DEVICE="cuda")
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "minialign_tpu_torch.prewarm"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.time() - t0
+    line = [x for x in r.stderr.splitlines() if "prewarm done" in x]
+    if r.returncode != 0 or not line:
+        fail(f"prewarm exited {r.returncode}: {r.stderr[-2000:]}")
+    say(f"[11d] python -m minialign_tpu_torch.prewarm: rc 0, wall "
+        f"{wall:.1f} s; {line[0]}")
+    say(f"[11] phase 11 took {time.time() - t11:.1f} s")
+    return launches
 
 
 def main():
@@ -1540,6 +1718,9 @@ def main():
 
     # ---- 10: parity with the JAX CLI
     phase10(torch, card, ref_fa, reads_fq)
+
+    # ---- 11: the device sketch
+    launches["sketch"] = phase11(np, torch, card, stats, ref_fa, reads_fq)
 
     # ---- 8
     bad = sorted(m for m in sys.modules

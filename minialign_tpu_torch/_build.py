@@ -34,7 +34,7 @@ from concurrent.futures import ThreadPoolExecutor
 PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
-SOURCES = ("fill.cu", "gather.cu", "dtrace.cu", "lookup.cu",
+SOURCES = ("fill.cu", "gather.cu", "dtrace.cu", "lookup.cu", "sketch.cu",
            "probe_subint32.cu", "probe_lowprec.cu", "probe_bf16ops.cu",
            "probe_wordstream.cu")
 HEADERS = ("probe_common.cuh",)
@@ -46,11 +46,11 @@ FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # the mapper's kernels ("fused": a fill that reads its windows from the
 # sequence stores, D2, counted as a fill too; "duo": the fill's duo
 # epilogue, counted once a launch that runs it), the sharded index's
-# lookup (parallel/), then the step-mix
-# probes P1-P4 (probes/), and the probes' launch floor, an empty kernel
-# (probes/_common.launch_floor: kbench.py only)
+# lookup (parallel/), the device minimizer sketch (index/), then the
+# step-mix probes P1-P4 (probes/), and the probes' launch floor, an empty
+# kernel (probes/_common.launch_floor: kbench.py only)
 LAUNCHES = {"fill": 0, "fused": 0, "gather": 0, "dtrace": 0, "duo": 0,
-            "lookup": 0,
+            "lookup": 0, "sketch": 0,
             "p1": 0, "p2": 0, "p3": 0, "p4": 0, "noop": 0}
 TRACED_FILL_B: list[int] = []
 FUSED_SHAPES: list[tuple] = []        # (B, La, Lb, W, trace)
@@ -76,6 +76,7 @@ _SIGS = {
                       _P, _P, _I, _P],
     "lookup_launch": [_P, _P, _P, _P, _P, _P, _I, _LL, _P, _LL, _P, _I, _I,
                       _P],
+    "sketch_launch": [_P, _LL, _I, _I, _P, _P, _P, _P, _P],
     # the probes' entries end in (device index, stream)
     "p1_probe_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
     "p2_elementwise_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],

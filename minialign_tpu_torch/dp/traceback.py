@@ -1,6 +1,7 @@
 """Host-side traceback over the fill's band mask buffers.
 
-Carries TraceResult, _identity and traceback_one from
+Carries TraceResult, _identity, traceback_one, traceback_batch and
+calc_score (the gaba_dp_calc_score validator) from
 minialign_tpu/dp/traceback.py unchanged; only the imports differ (the
 JAX module reaches jax through its band constants). See that module for
 the walk's semantics and reference citations.
@@ -257,3 +258,63 @@ def traceback_one(p: ScoreParams, W: int,
                        dcnt=dcnt, agcnt=agcnt, bgcnt=bgcnt,
                        identity=_identity(p, score, dcnt, e_pen),
                        gap_penalty=gap_penalty, ops_rev=ops_rev)
+
+
+def traceback_batch(p: ScoreParams, W: int, bufs, res) -> list:
+    """Trace every problem in a batch. bufs/res are numpy-converted
+    TraceBuffers/FillResult."""
+    out = []
+    B = res.max_score.shape[0]
+    for k in range(B):
+        out.append(traceback_one(
+            p, W, np.asarray(bufs.masks[k]), np.asarray(bufs.dirs[k]),
+            np.asarray(bufs.iheads[k]), int(res.max_score[k]),
+            int(res.max_i[k]), int(res.max_j[k])))
+    return out
+
+
+def calc_score(p: ScoreParams, path: str, rcodes: np.ndarray,
+               qcodes: np.ndarray) -> dict:
+    """Recompute score and counts by re-walking a forward path against
+    the raw sequences (gaba_dp_calc_score, gaba.c:3489-3560 — a
+    validation utility, not on the hot path). Gap runs price as the DP
+    would: min(gi + n*ge, n*gf) per contiguous run under the combined
+    model, affine otherwise."""
+    mat = p.matrix44()
+    n_sub = -2 * (p.gi + p.ge)
+    score = 0
+    mcnt = xcnt = agcnt = bgcnt = 0
+    ri = qi = i = 0
+    n = len(path)
+    while i < n:
+        if i + 1 < n and path[i] == "D" and path[i + 1] == "R":
+            a, b = int(rcodes[ri]), int(qcodes[qi])
+            if a >= 4 or b >= 4:
+                score += n_sub
+                xcnt += 1
+            else:
+                score += int(mat[b, a])
+                mcnt += 1 if a == b else 0
+                xcnt += 0 if a == b else 1
+            ri += 1
+            qi += 1
+            i += 2
+            continue
+        op = path[i]
+        run = 0
+        while i < n and path[i] == op and not (
+                op == "D" and i + 1 < n and path[i + 1] == "R"):
+            run += 1
+            i += 1
+        aff = p.gi + run * p.ge
+        gf = p.gfa if op == "D" else p.gfb
+        cost = min(aff, gf * run) if p.model == 2 and gf else aff
+        score -= cost
+        if op == "D":
+            bgcnt += run
+            qi += run
+        else:
+            agcnt += run
+            ri += run
+    return dict(score=score, mcnt=mcnt, xcnt=xcnt, agcnt=agcnt,
+                bgcnt=bgcnt)

@@ -326,6 +326,27 @@ class FillEngine:
         self.device = resolve_device(device)
         self.batch = batch or 512     # problems per launch
         self._ref_src = None
+        # launch-shape statistics (MINIALIGN_STATS=1 prints at exit), as
+        # the JAX engine keeps them (minialign_tpu/extend.py:307-325):
+        # (kind, n_real, B) per traced launch batch ("trace": the walk
+        # on the device; "duo"), n_real the problem count rounded up to
+        # 16 as the JAX engine counts it, B the launch's own problem
+        # count (the port pads no dispatch). None when the flag is unset
+        # so that long-lived processes don't grow the list.
+        self.stats = None
+        if os.environ.get("MINIALIGN_STATS"):
+            import atexit
+
+            self.stats = []
+
+            def _dump(st=self.stats):
+                import collections
+                import sys
+                c = collections.Counter(st)
+                for k, n in sorted(c.items()):
+                    print(f"[stats] {k[0]} nreal={k[1]} B={k[2]} "
+                          f"x{n}", file=sys.stderr)
+            atexit.register(_dump)
 
     def _store(self, parts) -> torch.Tensor:
         """The flat store on the device."""
@@ -470,6 +491,7 @@ class FillEngine:
                 if kind == "duo":
                     pending.append((sub, kind) + self._duo_batch(
                         [reqs[i] for i in sub], W))
+                    self._stat("duo", len(sub))
                     continue
                 side, nb, general = self._batch(
                     [reqs[i][1] for i in sub], [reqs[i][2] for i in sub])
@@ -485,6 +507,7 @@ class FillEngine:
                     pending.append((sub, kind) + dtrace(
                         self.p, W, bufs.masks, bufs.dirs, bufs.iheads,
                         res.max_score, res.max_i, res.max_j))
+                    self._stat("trace", len(sub))
                 else:
                     res = fill_store(self.p, W, nb, False, *side,
                                      general=general)
@@ -506,6 +529,10 @@ class FillEngine:
                     int(summ[-3, s]), int(summ[-2, s]), int(summ[-1, s]),
                     *ups[s])
         return out
+
+    def _stat(self, kind: str, B: int) -> None:
+        if self.stats is not None:
+            self.stats.append((kind, -(-B // 16) * 16, B))
 
     def _duo_batch(self, reqs, W):
         """Launches one duo batch; returns (rle, summary) on the device,

@@ -124,6 +124,37 @@ GATHER_KINDS = ("residue", "store_end", "past_store_end", "wrap_lt",
 LINEAR_KINDS = tuple(k for k in GATHER_KINDS
                      if not k.startswith(("wrap", "neg_start")))
 
+# The device sketch's edge cases (S1, csrc/sketch.cu), shared by the CPU
+# tests, the card tests and chip_smoke.py's phase 11: every k and w below
+# (k = 16 uses all 32 hash bits; w = 128 the last that keeps the window
+# index apart from the strand bit), at the lengths of sketch_lengths, on
+# codes of each kind: random with N (code 4, taken as A), all A and an
+# AT run (hashes that tie), and palindromic k-mers at even k
+SKETCH_K = (1, 2, 7, 10, 11, 15, 16)
+SKETCH_W = (1, 2, 3, 5, 10, 16, 64, 128)
+SKETCH_KINDS = ("random", "all_a", "period2", "palindrome")
+
+
+def sketch_lengths(k, w, tile):
+    """L of the edge cases at (k, w): none, one or two k-mers, the first
+    full window and one past it, and `tile` positions (csrc/sketch.cu's
+    TILE) less one, exact and one more, once and twice."""
+    return sorted({0, k - 1, k, k + 1, k + w - 1, k + w}
+                  | {m * tile + d + k - 1 for m in (1, 2) for d in (-1, 0, 1)})
+
+
+def sketch_codes(rng, kind, L, k):
+    """L int8 codes of one SKETCH_KINDS kind."""
+    if kind == "random":
+        return rng.integers(0, 5, L).astype(np.int8)
+    if kind == "all_a":
+        return np.zeros(L, np.int8)
+    if kind == "period2":
+        return np.resize(np.array([0, 3], np.int8), L)
+    half = max(k // 2, 1)           # blocks x + revcomp(x), 2 half each
+    x = rng.integers(0, 4, (-(-L // (2 * half)), half)).astype(np.int8)
+    return np.concatenate([x, (3 - x)[:, ::-1]], 1).reshape(-1)[:L]
+
 
 def mutate(rng, a, err=0.12):
     """~err edits: 40% substitutions, 30% deletions, 30% insertions."""

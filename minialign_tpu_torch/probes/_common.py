@@ -46,17 +46,21 @@ CPU_STEPS = 8
 # tensor cores with a fused multiply-add counted as one operation.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 33.5e12
+# 32-bit integer operations: an SM has 64 INT32 lanes against 128
+# float32 ones (NVIDIA's Hopper architecture whitepaper), so half the rate
+INT32_OPS_PER_S = ALU_OPS_PER_S / 2
 
 # the single PyTorch call that computes each elementwise binop
 LIBRARY_BINOP = {"add": torch.add, "maximum": torch.maximum,
                  "compare-gt": torch.gt, "select": torch.maximum}
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, float]:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = ALU_OPS_PER_S) -> tuple[float, float]:
     """(bytes ms, operations ms): the least times for moving nbytes
-    through HBM and for doing ops 32-bit operations; the bound is the
-    larger."""
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
+    through HBM and for doing ops operations at ops_per_s (32-bit ALU
+    operations unless given); the bound is the larger."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
 
 
 def binop_plain(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,10 @@ Fill results and walks must be identical; trace buffers over the
 blocks each problem filled itself (the kernel stops a problem at its own
 termination, the batched plain fill keeps stepping it). The step-mix
 probes P1-P4 (minialign_tpu_torch.probes) must equal their plain twins
-exactly, one dtype of each kind."""
+exactly, one dtype of each kind. The device sketch S1 must equal its
+plain version word for word on kbench's edge cases and the host sketch
+on a random genome; the fill kernel and traceback_batch must agree with
+the naive DP oracle (test_torch_oracle_port.cross_check)."""
 
 import dataclasses
 import io
@@ -26,10 +29,13 @@ import torch
 import chip_smoke
 from minialign_tpu_torch import _build, kbench
 from minialign_tpu_torch.dp import band, cuda_fill, cuda_gather, dtrace, duo
+from minialign_tpu_torch.index import cuda_sketch, sketch_device
+from minialign_tpu_torch.index.sketch import sketch as host_sketch
 from minialign_tpu_torch.params import MapParams, ScoreParams
 from minialign_tpu_torch.probes import bf16ops, lowprec, subint32, wordstream
 from minialign_tpu_torch.probes._common import tensor
 from test_torch_cli import cli_run
+from test_torch_oracle_port import PORT_PARAMS, cross_check
 
 pytestmark = pytest.mark.cuda
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -805,3 +811,62 @@ def test_cli_workers_on_cuda(dev, tmp_path):
         assert _build.worker_launches(str(logs))["fill"] > 0
     assert outs[0] == outs[1]
     assert launches == [1, 3]            # the parent and its two workers
+
+
+# ---- S1, the device sketch; the fill and traceback against the oracle
+
+
+def _same_sketch(got, want, what):
+    for name, g, x in zip(("hash", "pos", "strand", "emit"), got, want):
+        assert torch.equal(g, x), (name, what)
+
+
+@pytest.mark.parametrize("k", kbench.SKETCH_K)
+def test_sketch_kernel_matches_plain_on_edge_cases(k, dev):
+    rng = np.random.default_rng(k)
+    _build.reset_counts()
+    runs = 0
+    for w in kbench.SKETCH_W:
+        for L in kbench.sketch_lengths(k, w, cuda_sketch.TILE):
+            for kind in kbench.SKETCH_KINDS:
+                codes = torch.from_numpy(
+                    kbench.sketch_codes(rng, kind, L, k)).to(dev)
+                got = cuda_sketch.sketch_cuda(codes, k, w)
+                _same_sketch(got, sketch_device.sketch_device_plain(
+                    codes, k, w), (k, w, L, kind))
+                runs += L >= k
+    assert _build.LAUNCHES["sketch"] == runs
+
+
+def test_sketch_kernel_past_w128_and_int64_codes(dev):
+    """Windows past 128 (the index bits reach the strand bit, as in the
+    JAX function) up to the kernel's widest, and codes that are not
+    bytes (taken & 3 on the card first)."""
+    rng = np.random.default_rng(3)
+    for w in (129, 300, cuda_sketch.MAX_W):
+        codes = torch.from_numpy(
+            kbench.sketch_codes(rng, "random", 3000, 15)).to(dev)
+        _same_sketch(cuda_sketch.sketch_cuda(codes, 15, w),
+                     sketch_device.sketch_device_plain(codes, 15, w), w)
+    wide = codes.to(torch.int64)
+    got = sketch_device.sketch_device(wide, 15, 10)
+    want = sketch_device.sketch_device(codes.cpu(), 15, 10)
+    _same_sketch([got[0].view(torch.int32).cpu()] + [x.cpu() for x in got[1:]],
+                 [want[0].view(torch.int32)] + list(want[1:]), "int64 codes")
+    with pytest.raises(ValueError):
+        cuda_sketch.sketch_cuda(codes, 15, cuda_sketch.MAX_W + 1)
+
+
+def test_sketch_torch_matches_host_sketch_on_cuda(dev):
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 5, 1_000_000).astype(np.int8)
+    for k, w in ((15, 10), (11, 64), (16, 5), (7, 1)):
+        got = sketch_device.sketch_torch(genome, k, w)
+        for g, x in zip(got, host_sketch(genome, k, w), strict=True):
+            assert g.dtype == x.dtype and np.array_equal(g, x), (k, w)
+
+
+@pytest.mark.parametrize("W", [16, 32, 64])
+@pytest.mark.parametrize("pname", sorted(PORT_PARAMS))
+def test_fill_kernel_and_traceback_batch_match_oracle(pname, W, dev):
+    cross_check(pname, W, device=dev)

@@ -489,3 +489,26 @@ def test_cli_copy_matches_original_with_worker_and_mesh_branches():
                  "ShardedFillEngine(mp.score, mesh)",
                  "ShardedIndex(mi, mesh)", "FillEngine(mp.score, device=dev)"):
         assert part in main, part
+
+
+@pytest.mark.parametrize("name", ["dp/oracle", "dp/traceback", "prewarm"])
+def test_copy_matches_original(name):
+    """dp/oracle.py (the naive DP oracle), dp/traceback.py (traceback_one,
+    traceback_batch, calc_score and their helpers) and prewarm.py define
+    what the JAX package's modules define, each definition equal to the
+    original apart from imports and docstrings; prewarm's main apart from
+    the timed build before the map (cli._prebuild) and the build's
+    seconds on its stderr line."""
+    want = _defs(f"minialign_tpu/{name}.py")
+    got = _defs(f"minialign_tpu_torch/{name}.py")
+    assert got.keys() == want.keys()
+    for k in want:
+        if not (name == "prewarm" and k == "main"):
+            assert ast.dump(got[k]) == ast.dump(want[k]), k
+    if name == "prewarm":
+        g = ast.unparse(got["main"])
+        build = ("    t0 = time.time()\n    cli._prebuild()\n"
+                 "    build_s = time.time() - t0\n")
+        assert g.count(build) == 1 and g.count("; build {build_s:.1f} s") == 1
+        g = g.replace(build, "").replace("; build {build_s:.1f} s", "")
+        assert g == ast.unparse(want["main"])
