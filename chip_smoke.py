@@ -65,7 +65,8 @@ Phases, in order; any failure exits non-zero before the result line:
      PyTorch call, ns/step at the tools' own counts (the step timer also
      at 2^17 steps); then P1 and P2 on kbench's edge inputs (the types'
      ends, an odd size, misaligned views), the step timer at B=128
-     and 1024, int16 also from inputs whose adds wrap, and P3's timing
+     and 1024, int16 also from inputs whose adds wrap, its ns/step at
+     B=1024 beside its bound a step (lowprec.step_bound_ns), P3's timing
      loop and P4's stream and roll on theirs (the types' ends, B and C
      1 / 33 / 128, steps around the stream's 7-step pass, directions
      outside [0, 7), words with the sign bit set, 0-65 rounds)
@@ -109,16 +110,19 @@ Phases, in order; any failure exits non-zero before the result line:
   11 the device minimizer sketch S1 (csrc/sketch.cu,
      minialign_tpu_torch.index.sketch_device): (a) the kernel equal to
      sketch_device_plain on all four arrays, word for word, on kbench's
-     edge cases (every SKETCH_K x SKETCH_W, L from 0 through one and two
-     tiles of positions +-1, random codes with N, all A, an AT run,
-     palindromes), and at w 129 and MAX_W; (b) sketch_torch equal to the
+     edge cases (every SKETCH_K x SKETCH_W, L from 0 through the edges of
+     the first two w-blocks and of one and two tiles of positions, random
+     codes with N, all A, an AT run, palindromes), and at
+     SKETCH_W_WIDE's w (129 up to MAX_W) on the same lengths, random and
+     all A; (b) sketch_torch equal to the
      port's host sketch (index.sketch.sketch, the native sketch_seq) at
      the E2E index's k and w on the E2E genome, each of its 100 reads, and
      a 250 Mb random genome (the size of GRCh38 chr1) made with numpy from
      SKETCH_SEED; the kernel's launches counted over (b); (c) at 250 Mb
      the kernel's device time, the wrapper's time a call (upload,
-     kernel, compaction, read-back), the host sketch's time, the plain
-     version's, positions a second, the bound and the peak device memory;
+     kernel, compaction, read-back) and its stages, the host sketch's
+     time, the plain version's, positions a second, the bound and the
+     peak device memory;
      (d) python -m minialign_tpu_torch.prewarm on the card, exit 0, with
      its wall
   8  neither jax nor minialign_tpu imported; the kernels' JSON line,
@@ -286,27 +290,29 @@ def say(msg):
     print(msg, flush=True)
 
 
-# operations a band cell costs the fill (the recurrence: 13; with the
-# trace code: 30) and a move the walk, counted from csrc/fill.cu and
-# csrc/dtrace.cu, for the kernels' bounds
-FILL_OPS_CELL = {False: 13, True: 30}
+# operations a band cell costs the fill and a move the walk, counted from
+# csrc/fill.cu and csrc/dtrace.cu as the card issues them, for the
+# kernels' bounds. The recurrence 11: E and F a DPX add-max
+# (__viaddmax_s32) and a sub each (4), the diagonal's add and the two gap
+# subs (3), two DPX three-way maxes (__vimax3_s32, 2), the floor's max
+# (1) and the best cell's compare (1); the trace code 17 more.
+FILL_OPS_CELL = {False: 11, True: 28}
 WALK_OPS_MOVE = 20
 
 
 # 32-bit integer operations a k-mer position costs the sketch as a
-# function, not as csrc/sketch.cu does it (the kernel rebuilds the k-mer
-# from k codes and rescans the window: ~4k + 4w more): the rolling k-mer
-# 8 (the code's & 3; k0's shift, or and mask; k1's complement, shift and
-# or), the strand and the two selects 3, the CRC's eight table steps 31
-# (an index: the data byte's shift and xor and the mask, the first step
-# without the shift, the last four without the byte; the accumulator's
-# shift and xor; the eight table loads go to the load/store units), the
-# hash's xor and mask 2, the window index (a running p % w) and the
-# strand bit 5, an amortized sliding minimum 15 (van Herk / Gil-Werman:
-# three compare-selects of the 64-bit (h, lo) word and the position a
-# position), and the emission's compares, select and strand bit 8. Rated
-# at the card's INT32 rate (probes._common.INT32_OPS_PER_S).
-SKETCH_OPS = 8 + 3 + 31 + 2 + 5 + 15 + 8
+# function, not as csrc/sketch.cu does it: the rolling k-mer 8 (the
+# code's & 3; k0's shift, or and mask; k1's complement, shift and or),
+# the strand and the two selects 3, the window index (a running p % w)
+# and the strand bit 5, an amortized sliding minimum 15 (van Herk /
+# Gil-Werman: three compare-selects of the 64-bit (h, lo) word and the
+# position a position), and the emission's compares, select and strand
+# bit 8. No hash: the JAX function's (crc32c(kx) ^ km) & (4^k - 1) is km,
+# since _mm_crc32_u64(kx, kx) is 0 for every kx < 2^32 (the proof at
+# csrc/sketch.cu's hash; tests/test_torch_sketch_crc.py), so the CRC's 31
+# operations and the xor and mask are no work the function needs. At the
+# card's 32-bit ALU rate: 0.29 ms at 250 Mb, under the bytes' 0.82.
+SKETCH_OPS = 8 + 3 + 5 + 15 + 8
 
 SKETCH_GENOME = 250_000_000    # bases: GRCh38 chr1 has 248,956,422
 SKETCH_SEED = 12
@@ -339,11 +345,11 @@ def show(bd):
     return f"bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})"
 
 
-def bound(nbytes, ops, ops_per_s=None):
-    """{bound_ms, bound_by} for nbytes through HBM and ops operations at
-    ops_per_s (32-bit ALU operations unless given)."""
-    from minialign_tpu_torch.probes._common import ALU_OPS_PER_S, bound_ms
-    tb, to = bound_ms(nbytes, ops, ops_per_s or ALU_OPS_PER_S)
+def bound(nbytes, ops):
+    """{bound_ms, bound_by} for nbytes through HBM and ops 32-bit ALU
+    operations (probes._common.bound_ms)."""
+    from minialign_tpu_torch.probes._common import bound_ms
+    tb, to = bound_ms(nbytes, ops)
     return dict(bound_ms=max(tb, to),
                 bound_by="bytes" if tb >= to else "operations")
 
@@ -800,38 +806,40 @@ def phase11(np, torch, card, stats, ref_fa, reads_fq):
     from minialign_tpu_torch.index import sketch_device as sd
     from minialign_tpu_torch.index.sketch import sketch
     from minialign_tpu_torch.io import bseq
-    from minialign_tpu_torch.probes._common import INT32_OPS_PER_S
     dev = torch.device("cuda", 0)
     t11 = time.time()
 
-    # (a) the kernel against its plain version on the edge cases
+    # (a) the kernel against its plain version on the edge cases: a
+    # position's outputs depend only on the codes up to its k-mer's end,
+    # so the plain version runs once on a case's longest codes and each
+    # length is held to its prefix
     rng = np.random.default_rng(11)
     n_runs = 0
-
-    def same(codes, k, w, what):
-        if not all(map(torch.equal, cuda_sketch.sketch_cuda(codes, k, w),
-                       sd.sketch_device_plain(codes, k, w))):
-            fail(f"sketch kernel != sketch_device_plain: {what}")
-
-    for k in kbench.SKETCH_K:
-        for w in kbench.SKETCH_W:
-            for L in kbench.sketch_lengths(k, w, cuda_sketch.TILE):
-                for kind in kbench.SKETCH_KINDS:
-                    codes = torch.from_numpy(
-                        kbench.sketch_codes(rng, kind, L, k)).to(dev)
-                    same(codes, k, w, f"k={k} w={w} L={L} {kind}")
-                    n_runs += 1
-    for w in (129, cuda_sketch.MAX_W):
-        codes = torch.from_numpy(kbench.sketch_codes(
-            rng, "random", 3 * cuda_sketch.TILE, 15)).to(dev)
-        same(codes, 15, w, f"k=15 w={w}")
-        n_runs += 1
+    cases = [(k, w, kind) for k in kbench.SKETCH_K for w in kbench.SKETCH_W
+             for kind in kbench.SKETCH_KINDS]
+    cases += [(15, w, kind) for w in kbench.SKETCH_W_WIDE
+              for kind in ("random", "all_a")]
+    for k, w, kind in cases:
+        lengths = kbench.sketch_lengths(k, w, cuda_sketch.tile(w))
+        codes = torch.from_numpy(
+            kbench.sketch_codes(rng, kind, lengths[-1], k)).to(dev)
+        want = sd.sketch_device_plain(codes, k, w)
+        for L in lengths:
+            n = max(L - k + 1, 0)
+            got = cuda_sketch.sketch_cuda(codes[:L], k, w)
+            if not all(torch.equal(g, x[:n]) for g, x in zip(got, want)):
+                fail(f"sketch kernel != sketch_device_plain: k={k} w={w} "
+                     f"L={L} {kind}")
+            n_runs += 1
     torch.cuda.synchronize()
     say(f"[11a] sketch equal to plain, word for word, on {n_runs} runs: k "
-        f"{kbench.SKETCH_K} x w {kbench.SKETCH_W} at L 0 through two tiles "
-        f"of {cuda_sketch.TILE} positions +-1 "
-        f"({', '.join(kbench.SKETCH_KINDS)}), and w 129 / "
-        f"{cuda_sketch.MAX_W} ({time.time() - t11:.1f} s)")
+        f"{kbench.SKETCH_K} x w {kbench.SKETCH_W} "
+        f"({', '.join(kbench.SKETCH_KINDS)}), and k 15 x w "
+        f"{kbench.SKETCH_W_WIDE} (random, all_a), at L 0 through the first "
+        f"two w-blocks' edges and one and two tiles +-1 (tile: "
+        f"{cuda_sketch.tile(10)} positions at w 10, "
+        f"{cuda_sketch.tile(cuda_sketch.MAX_W)} at w {cuda_sketch.MAX_W}) "
+        f"({time.time() - t11:.1f} s)")
 
     # (b) sketch_torch against the host sketch at real size
     o = cli.Opts()
@@ -895,6 +903,14 @@ def phase11(np, torch, card, stats, ref_fa, reads_fq):
             t0 = time.perf_counter()
             sd.sketch_torch(codes, k, w)
             walls.append((time.perf_counter() - t0) * 1e3)
+        # the same call stage by stage (synchronized between stages),
+        # the median of three
+        runs = []
+        for _ in range(3):
+            st = {}
+            sd.sketch_torch(codes, k, w, stages=st)
+            runs.append(st)
+        stages = {key: sorted(r[key] for r in runs)[1] for key in runs[0]}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -902,18 +918,22 @@ def phase11(np, torch, card, stats, ref_fa, reads_fq):
         peak = torch.cuda.max_memory_allocated() - base
         del t
         nbytes = len(codes) + 10 * n
-        bd = bound(nbytes, SKETCH_OPS * n, INT32_OPS_PER_S)
+        bd = bound(nbytes, SKETCH_OPS * n)
         res[name] = dict(ms=ms, plain_ms=pms, max_abs_err=err, **bd,
                          wrapper_ms=sorted(walls)[1], host_ms=host_ms[name],
+                         wrapper_stages_ms=stages,
                          positions=n, occurrences=n_occ, peak_bytes=peak)
         say(f"[11c] sketch of the {name} ({len(codes)} bases), k={k} w={w}: "
             f"kernel {ms:.5f} ms device time ({n / ms / 1e6:.1f} G "
             f"positions/s), sketch_torch {fmt(walls)} ms a call (upload, "
             f"kernel, compaction, read-back), the host sketch "
             f"{host_ms[name]:.1f} ms, the plain version {pms:.1f} ms; "
-            f"{show(bd)} ({nbytes} bytes, {SKETCH_OPS} INT32 ops a "
+            f"{show(bd)} ({nbytes} bytes, {SKETCH_OPS} 32-bit ops a "
             f"position); {n_occ} occurrences; sketch_torch peaks at {peak} "
             f"B of device memory on {card}")
+        say(f"[11c] sketch_torch of the {name} by stage, ms (median of 3, "
+            f"synchronized between stages): "
+            + ", ".join(f"{key} {v:.3f}" for key, v in stages.items()))
     stats["sketch"].update(library_ms=None, k=k, w=w,
                            **res.pop("250 Mb genome"),
                            e2e_genome=res["E2E genome"])
@@ -1670,8 +1690,14 @@ def main():
         x, dd = cases[0]
         ns = [lowprec.step_timer(x, dd, k, dev).ns_per_step
               for k in (lowprec.STEPS, lowprec.LONG_STEPS)]
+        bns = lowprec.step_bound_ns(dt, 1024)
+        stats["p2"].setdefault("step_timer_b1024", {})[dt] = dict(
+            ns_per_step=ns[1], steps=lowprec.LONG_STEPS, bound_ns=bns)
         say(f"[7] step timer {dt} W=64 B=1024: {ns[0]:.1f} ns/step at "
-            f"{lowprec.STEPS} steps, {ns[1]:.1f} at {lowprec.LONG_STEPS} "
+            f"{lowprec.STEPS} steps, {ns[1]:.1f} at {lowprec.LONG_STEPS}, "
+            f"bound {bns:.2f} ns/step ({lowprec.STEP_OPS[dt]} operations "
+            f"a value of 4 x 64 x 1024, lowprec.STEP_OPS; "
+            f"{ns[1] / bns:.2f}x it) "
             f"(kernel equal to plain at 64 and {n} steps at B 128 and 1024"
             f"{', and from inputs that wrap' if dt == 'int16' else ''}; at "
             f"{n} steps kernel {ms:.3f} ms, plain {pms:.1f} ms) on {card}")

@@ -76,7 +76,7 @@ _SIGS = {
                       _P, _P, _I, _P],
     "lookup_launch": [_P, _P, _P, _P, _P, _P, _I, _LL, _P, _LL, _P, _I, _I,
                       _P],
-    "sketch_launch": [_P, _LL, _I, _I, _P, _P, _P, _P, _P],
+    "sketch_launch": [_P, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # the probes' entries end in (device index, stream)
     "p1_probe_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
     "p2_elementwise_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],

@@ -17,26 +17,30 @@
 // warp-uniform, as the fill's down/up branch is. A step_timer step is,
 // for each of the 4 arrays a (old values throughout):
 //   a <- max((d ? roll_up(a) : a) + 1, arrs[0]).
-// int32 and float32 keep a value a register, four columns a block: the
+// The step timer runs one column a block (column blockIdx.x) in every
+// type, so the column, its direction and the roll's branch are uniform
+// to the compiler, which then puts no convergence barrier (WARPSYNC,
+// BSSY / BSYNC) around the shuffles; the roll is shuffles, then a select
+// on the thread index. int32 and float32 keep a value a register: the
 // roll is fill.cu's roll_up (two __shfl_down_sync and one __shfl_sync),
-// max(x + 1, y) the DPX __viaddmax_s32 for int32. The column comes from
-// the thread index there, so the compiler cannot see that the roll's
-// branch is uniform and wraps every shuffle in convergence barriers
-// (WARPSYNC, BSSY / BSYNC): those, not the arithmetic, are most of a
-// step (PERF.md).
+// max(x + 1, y) the DPX __viaddmax_s32 for int32.
 // int16, bf16 (and int8 in roll_concat) pack rows t and t + 32 into one
 // 32-bit word, two lanes, as the TPU packs a 16-bit array two rows to a
-// sublane word, and run one column a block: the roll is one
-// __shfl_down_sync of the word and, on thread 31, thread 0's high lane
-// moved down with 0 above (one __shfl_sync, one __byte_perm); a step is
-// one select and one __viaddmax_s16x2 (int16: add and max wrap per lane,
-// one VIADDMNMX.S16x2) or __hmax2(__hadd2(a, 1), f0) (bf16) a word: two
+// sublane word: the roll is one __shfl_down_sync of the word and, on
+// thread 31, thread 0's high lane moved down with 0 above (one
+// __shfl_sync, one __byte_perm); a step is one select and one
+// __viaddmax_s16x2 (int16: add and max wrap per lane, one
+// VIADDMNMX.S16x2) or __hmax2(__hadd2(a, 1), f0) (bf16) a word: two
 // shuffles a roll instead of three, one or two instructions a step
-// instead of four, and no convergence barriers.
+// instead of four. roll_concat keeps four columns a block in int32 and
+// float32 (the column from the thread index).
 // What bounds a step: the dependent chain shuffle -> select -> add-max of
 // one warp. B = 128 columns leave most schedulers with one warp or none:
 // latency; B = 1024 put ~2 warps on each: latency still, by the packed
-// kernels' measured times, which hardly move from 128 to 1024.
+// kernels' measured times, which hardly move from 128 to 1024. The
+// function's own work a step, a select and a DPX add-max on each of 4 x
+// 64 x B int32 values, is 15.7 ns at B = 1024 at the card's 32-bit ALU
+// rate (lowprec.step_bound_ns; chip_smoke prints each type's).
 
 #include "probe_common.cuh"
 
@@ -44,7 +48,7 @@ namespace {
 
 using namespace probe;
 
-constexpr int WARPS = 4;  // columns per block
+constexpr int WARPS = 4;  // roll_concat's columns a block in int32 / float32
 constexpr int N_ARR = 4;  // probe_lowprec.step_timer's n_arr
 
 // roll_up on packed words: thread t takes thread t + 1's word (rows t + 1
@@ -128,13 +132,13 @@ roll_concat_kernel(const T* __restrict__ x, const T* __restrict__ y, int B,
   out[(t + 32) * B + col] = to_f32(hi);
 }
 
+// One column a block, as the packed kernel: the roll's branch is uniform.
 template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(32)
 step_timer_kernel(const T* __restrict__ x, const int32_t* __restrict__ dd,
                   int B, int n_steps, float* __restrict__ out) {
-  const int t = threadIdx.x & 31;
-  const int col = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (col >= B) return;  // warp-uniform
+  const int t = threadIdx.x;
+  const int col = blockIdx.x;
   const T x0 = x[t * B + col], x1 = x[(t + 32) * B + col];
   T lo[N_ARR], hi[N_ARR];
 #pragma unroll
@@ -204,8 +208,9 @@ extern "C" int p2_roll_concat_launch(const void* x, const void* y, int B,
   return (int)cudaGetLastError();
 }
 
-// x: (64, B) of the dtype; dd: (B,) int32; out (64, B) float32. int16 and
-// bf16 in packed pairs, the other types a value a register.
+// x: (64, B) of the dtype; dd: (B,) int32; out (64, B) float32; one
+// column a block. int16 and bf16 in packed pairs, the other types a value
+// a register.
 extern "C" int p2_step_timer_launch(const void* x, const void* dd, int B,
                                     int dtype, int n_steps, void* out,
                                     int device, void* stream) {
@@ -213,7 +218,6 @@ extern "C" int p2_step_timer_launch(const void* x, const void* dd, int B,
   const DeviceGuard on(device);
   const bool ok = dispatch(dtype, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    const int grid = (B + WARPS - 1) / WARPS;
     const T* xt = static_cast<const T*>(x);
     const int32_t* d = static_cast<const int32_t*>(dd);
     float* o = static_cast<float*>(out);
@@ -221,7 +225,7 @@ extern "C" int p2_step_timer_launch(const void* x, const void* dd, int B,
       step_timer_pair_kernel<T><<<B, 32, 0, as_stream(stream)>>>(
           xt, d, B, n_steps, o);
     else
-      step_timer_kernel<T><<<grid, WARPS * 32, 0, as_stream(stream)>>>(
+      step_timer_kernel<T><<<B, 32, 0, as_stream(stream)>>>(
           xt, d, B, n_steps, o);
   });
   if (!ok) return (int)cudaErrorInvalidValue;

@@ -22,6 +22,8 @@ holding the uint32 bits (the kernel and the plain version).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -133,22 +135,48 @@ def sketch_device(codes: torch.Tensor, k: int, w: int):
     return h.view(torch.uint32), pos, strand, emit
 
 
-def sketch_torch(codes, k: int, w: int, device="cuda"):
+def sketch_torch(codes, k: int, w: int, device="cuda", stages=None):
     """Compacted (hash uint64, pos int64, strand uint8) numpy arrays of
     codes (a numpy array), the contract of index/sketch.sketch: the sketch
     on `device` (the card unless the caller asks for the CPU), the
-    occurrences gathered there and only they read back."""
+    occurrences gathered there and only they read back. Byte codes go
+    up as they are (the kernel and the plain version take them & 3);
+    others are cut to bytes on the host first. `stages`, a dict, gets each
+    stage's ms added (host copy, upload, kernel, compaction, read-back,
+    widening), the device synchronized between them."""
     dev = resolve_device(device)
     codes = np.asarray(codes)
     if len(codes) - k + 1 <= 0:
         return (np.empty(0, np.uint64), np.empty(0, np.int64),
                 np.empty(0, np.uint8))
     _check(k, w, len(codes))           # before the copy below
-    t = torch.from_numpy(np.ascontiguousarray(codes & 3, np.uint8)).to(dev)
+    last = [time.perf_counter()]
+
+    def stage(name):
+        if stages is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            stages[name] = stages.get(name, 0.0) + (now - last[0]) * 1e3
+            last[0] = now
+
+    if codes.dtype in (np.int8, np.uint8) and codes.flags.c_contiguous \
+            and codes.flags.writeable:
+        host = codes
+    else:
+        host = np.ascontiguousarray(codes & 3, np.uint8)
+    stage("host copy")
+    t = torch.from_numpy(host).to(dev)
+    stage("upload")
     h, pos, strand, emit = sketch_device(t, k, w)
+    stage("kernel")
     idx = emit.nonzero().squeeze(1)
     # int32 bits: the card's torch may lack uint32 indexing
-    return (h.view(torch.int32).index_select(0, idx).cpu().numpy()
-            .view(np.uint32).astype(np.uint64),
-            pos.index_select(0, idx).cpu().numpy().astype(np.int64),
-            strand.index_select(0, idx).cpu().numpy())
+    got = (h.view(torch.int32).index_select(0, idx),
+           pos.index_select(0, idx), strand.index_select(0, idx))
+    stage("compaction")
+    hs, ps, ss = (x.cpu().numpy() for x in got)
+    stage("read-back")
+    out = hs.view(np.uint32).astype(np.uint64), ps.astype(np.int64), ss
+    stage("widening")
+    return out

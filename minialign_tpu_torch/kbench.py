@@ -5,7 +5,7 @@ run, on one CUDA card.
     python minialign_tpu_torch/kbench.py [--root DIR] [--batches 128,8]
         [--reps 3] [--e2e [--duo 1,0]] [--probes] [--fused]
         [--walls t1,t4,p2,p4 [--wall-reps 2]] [--wall-split 1,2,4]
-        [--lookup]
+        [--lookup] [--sketch] [--steps]
 
 Gather: chip_smoke.py's phase 2 case (512 windows of 32 kb from a 10 MB
 store) and one launch of E2E_GATHER (one problem a side at about the
@@ -64,6 +64,12 @@ shapes: kernel, wrapper, the sharded path as seeding calls it and
 torch.searchsorted; with this checkout's design also whole lines
 against sectors by the number of queries (lookup_bench).
 
+--sketch times S1 (sketch_bench) at k = 15 on the 5 Mb E2E genome (w =
+10) and a 250 Mb one (w = 10, 64, 1024), with the kernel's registers and
+SASS; --steps
+times P2's step timer alone (step_bench) with its SASS. Each ends the
+run after it.
+
 --batches "" leaves the fill and walk out. --root DIR imports
 minialign_tpu_torch from DIR instead of this checkout, so that one call
 can time two commits on one card (unpack the other with git archive).
@@ -104,6 +110,8 @@ E2E_GATHER = (1, 1, 40960, 20480)   # rows a side, row lengths
 E2E_FUSED = (1, 40960, 20480)       # problems, row lengths a side
 SIDE = ("base", "start", "cap", "seglen", "wrap")
 PROBE_CALLS = 20     # calls a probe window (probes._common.Report.WINDOW)
+SKETCH_CALLS = {"E2E genome": 100, "250 Mb genome": 10}  # S1's windows
+SKETCH_BENCH_W = (10, 64, 1024)      # S1's w at 250 Mb (the CLI: 10)
 STAGE_CALLS = 2000   # calls a wrapper stage is timed over
 STEP_B = (128, 1024)                 # step timer columns
 STEP_COUNTS = (2048, 2**17)          # step timer n (slope to 2 n)
@@ -127,20 +135,26 @@ LINEAR_KINDS = tuple(k for k in GATHER_KINDS
 # The device sketch's edge cases (S1, csrc/sketch.cu), shared by the CPU
 # tests, the card tests and chip_smoke.py's phase 11: every k and w below
 # (k = 16 uses all 32 hash bits; w = 128 the last that keeps the window
-# index apart from the strand bit), at the lengths of sketch_lengths, on
-# codes of each kind: random with N (code 4, taken as A), all A and an
-# AT run (hashes that tie), and palindromic k-mers at even k
+# index apart from the strand bit; SKETCH_W_WIDE past it, up to the
+# kernel's widest), at the lengths of sketch_lengths, on codes of each
+# kind: random with N (code 4, taken as A), all A and an AT run (hashes
+# that tie), and palindromic k-mers at even k
 SKETCH_K = (1, 2, 7, 10, 11, 15, 16)
 SKETCH_W = (1, 2, 3, 5, 10, 16, 64, 128)
+SKETCH_W_WIDE = (129, 300, 1024)
 SKETCH_KINDS = ("random", "all_a", "period2", "palindrome")
 
 
 def sketch_lengths(k, w, tile):
-    """L of the edge cases at (k, w): none, one or two k-mers, the first
-    full window and one past it, and `tile` positions (csrc/sketch.cu's
-    TILE) less one, exact and one more, once and twice."""
-    return sorted({0, k - 1, k, k + 1, k + w - 1, k + w}
-                  | {m * tile + d + k - 1 for m in (1, 2) for d in (-1, 0, 1)})
+    """L of the edge cases at (k, w): none, one or two k-mers; position
+    counts at the edges of the first two w-blocks (csrc/sketch.cu's van
+    Herk blocks: w - 1, w, w + 1, 2w - 1, 2w, 2w + 1); and `tile`
+    positions (a block's, cuda_sketch.tile(w)) less one, exact and one
+    more, once and twice, and one w-block into the second tile +-1."""
+    ns = ({1, 2, w - 1, w, w + 1, 2 * w - 1, 2 * w, 2 * w + 1}
+          | {m * tile + d for m in (1, 2) for d in (-1, 0, 1)}
+          | {tile + w - 1, tile + w + 1})
+    return sorted({0, k - 1} | {n + k - 1 for n in ns if n > 0})
 
 
 def sketch_codes(rng, kind, L, k):
@@ -1122,35 +1136,40 @@ def step_bench(torch, pkg, emit):
             equal = bool(torch.equal(lowprec.step_loop(x, dd, 64, dev),
                                      lowprec.step_timer_plain(x, dd, 64)))
             ts = {n: lowprec.step_timer(x, dd, n, dev) for n in STEP_COUNTS}
+            bound = getattr(lowprec, "step_bound_ns", None)
             emit(kind="step_timer", pkg=pkg, dtype=dt, B=B,
                  equal_at_64=equal,
                  ns_per_step={n: t.ns_per_step for n, t in ts.items()},
-                 t1_ms={n: t.t1_ms for n, t in ts.items()})
+                 t1_ms={n: t.t1_ms for n, t in ts.items()},
+                 bound_ns=bound(dt, B) if bound else None)
 
 
 def loop_bench(torch, pkg, emit):
     """Emits the ns/step (slope between n and 2 n, fastest of the reps) of
     P3's timing loop in each dtype of bf16ops.TIMING_DTYPES and of P4's
     stream update, at each B (columns) of LOOP_B and n of LOOP_COUNTS,
-    after holding each to its plain twin at 64 steps."""
+    after holding each to its plain twin at 64 steps; P3's beside its
+    bound a step (bf16ops.timing_bound_ns)."""
     from minialign_tpu_torch.probes import _common, bf16ops, wordstream
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(4)
 
-    def bench(kind, dtype, B, run, plain, timer):
+    def bench(kind, dtype, B, run, plain, timer, bound_ns=None):
         equal = bool(torch.equal(run(64), plain(64)))
         ts = {n: timer(n) for n in LOOP_COUNTS}
         emit(kind=kind, pkg=pkg, dtype=dtype, B=B, equal_at_64=equal,
              ns_per_step={n: t.ns_per_step for n, t in ts.items()},
-             t1_ms={n: t.t1_ms for n, t in ts.items()})
+             t1_ms={n: t.t1_ms for n, t in ts.items()}, bound_ns=bound_ns)
 
+    bound = getattr(bf16ops, "timing_bound_ns", None)
     for dt in bf16ops.TIMING_DTYPES:
         for B in LOOP_B:
             x = bf16ops.timing_input(rng, dt, dev, B)
             bench("p3_loop", dt, B,
                   lambda n: bf16ops.timing_loop(x, n, dev),
                   lambda n: bf16ops.timing_plain(x, n),
-                  lambda n: bf16ops.timing(x, n, dev))
+                  lambda n: bf16ops.timing(x, n, dev),
+                  bound(dt, B) if bound else None)
     for B in LOOP_B:
         wa, wb = (_common.tensor(rng.integers(0, 2**30, (8, B)), "int32",
                                  dev) for _ in range(2))
@@ -1221,13 +1240,17 @@ def sass_loops(lines):
     return loops
 
 
-def sass_counts(pkg, emit):
-    """Emits, for each probe kernel of the loaded package's library
-    (binop_kernel, roll_concat, step_timer, P3's timing loops, P4's
-    stream and roll, the launch floor's noop), its SASS instruction count
-    and opcode histogram, and those of each loop (sass_loops: a loop's
-    instructions over the steps it unrolls are a step's) (cuobjdump
-    -sass; names demangled by cu++filt where the toolkit has it)."""
+PROBE_SASS = r"binop|roll_concat|step_timer|timing|stream|roll_in_carry|noop"
+
+
+def sass_counts(pkg, emit, pattern=PROBE_SASS):
+    """Emits, for each kernel of the loaded package's library whose name
+    matches `pattern` (by default the probe kernels: binop_kernel,
+    roll_concat, step_timer, P3's timing loops, P4's stream and roll,
+    the launch floor's noop), its SASS instruction count and opcode
+    histogram, and those of each loop (sass_loops: a loop's instructions
+    over the steps it unrolls are a step's) (cuobjdump -sass; names
+    demangled by cu++filt where the toolkit has it)."""
     from minialign_tpu_torch import _build
     bins = [shutil.which(t) or f"/usr/local/cuda/bin/{t}"
             for t in ("cuobjdump", "cu++filt")]
@@ -1240,9 +1263,7 @@ def sass_counts(pkg, emit):
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            cur = m.group(1) if re.search(
-                r"binop|roll_concat|step_timer|timing|stream|roll_in_carry"
-                r"|noop", m.group(1)) else None
+            cur = m.group(1) if re.search(pattern, m.group(1)) else None
             if cur:
                 funcs[cur], body[cur] = {}, []
             continue
@@ -1261,6 +1282,48 @@ def sass_counts(pkg, emit):
         emit(kind="sass", pkg=pkg, function=name, n=sum(ops.values()),
              ops=dict(sorted(ops.items(), key=lambda kv: -kv[1])),
              loops=[dict(n=n, ops=o) for n, o in sass_loops(body[fn])])
+
+
+def sketch_bench(torch, pkg, emit):
+    """Emits S1's device time (device_ms: SKETCH_CALLS launches a window
+    behind a device spin, the median of three windows) at k = 15 on the
+    E2E genome (5 Mb) at w = 10 and on a 250 Mb genome (numpy, seed 12,
+    as chip_smoke.py's phase 11) at each w of SKETCH_BENCH_W, each result
+    held to sketch_device_plain, beside the bytes' bound (a code read, 10
+    bytes written a position); then the kernel's registers and SASS (its
+    loops: instructions a position)."""
+    from minialign_tpu_torch import _build
+    from minialign_tpu_torch.index import cuda_sketch
+    from minialign_tpu_torch.index import sketch_device as sd
+    from minialign_tpu_torch.io import bseq
+    from minialign_tpu_torch.probes._common import HBM_BYTES_PER_S
+    dev = torch.device("cuda", torch.cuda.current_device())
+    k = 15
+    e2e = next(iter(bseq.read_seqs(e2e_workload()[0]))).codes
+    genomes = [("E2E genome", e2e, (10,)),
+               ("250 Mb genome", np.random.default_rng(12).integers(
+                   0, 4, 250_000_000, dtype=np.int8), SKETCH_BENCH_W)]
+    for name, codes, ws in genomes:
+        n = len(codes) - k + 1
+        t = torch.from_numpy(np.ascontiguousarray(codes, np.int8)).to(dev)
+        for w in ws:
+            got = cuda_sketch.sketch_cuda(t, k, w)
+            equal = all(map(torch.equal, got,
+                            sd.sketch_device_plain(t, k, w)))
+            del got
+            torch.cuda.empty_cache()
+            ms = device_ms(torch, lambda: cuda_sketch.sketch_cuda(t, k, w),
+                           calls=SKETCH_CALLS[name])
+            nbytes = len(codes) + 10 * n
+            emit(kind="sketch", pkg=pkg, genome=name, k=k, w=w,
+                 positions=n, equal=equal, device_ms=ms,
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                 g_positions_s=n / ms / 1e6)
+        del t
+        torch.cuda.empty_cache()
+    emit(kind="registers", pkg=pkg,
+         registers=library_registers(_build.LIB, "sketch"))
+    sass_counts(pkg, emit, r"sketch")
 
 
 def card():
@@ -1691,6 +1754,10 @@ def main(argv=None):
                     help="D2: the fill in store mode against rows mode "
                     "and the two-launch composition")
     ap.add_argument("--lookup", action="store_true")
+    ap.add_argument("--sketch", action="store_true",
+                    help="S1 at 5 Mb and 250 Mb, its registers and SASS")
+    ap.add_argument("--steps", action="store_true",
+                    help="P2's step timer alone, with its SASS")
     ap.add_argument("--walls", default="",
                     help="CLI walls on the E2E workload: comma-separated "
                     "tN (-tN) and pN (MINIALIGN_PROC_WORKERS=N) items")
@@ -1717,6 +1784,13 @@ def main(argv=None):
         wall_split([int(x) for x in o.wall_split.split(",")], emit)
     if o.lookup:
         lookup_bench(torch, pkg, emit)
+    if o.sketch:
+        sketch_bench(torch, pkg, emit)
+    if o.steps:
+        step_bench(torch, pkg, emit)
+        sass_counts(pkg, emit, r"step_timer")
+    if o.sketch or o.steps:
+        return 0
     gather_bench(torch, pkg, E2E_GATHER, emit)
     batches = [int(x) for x in o.batches.split(",") if x]
     if batches:

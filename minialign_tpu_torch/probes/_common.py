@@ -43,24 +43,25 @@ CPU_STEPS = 8
 # The card's peaks for a kernel's bound (NVIDIA's H100 SXM data
 # sheet): 3.35 TB/s of HBM, and 32-bit
 # ALU operations at 33.5 T/s, i.e. its 67 TFLOP/s of float32 outside the
-# tensor cores with a fused multiply-add counted as one operation.
+# tensor cores with a fused multiply-add counted as one operation. The
+# integer kernels are rated alike, their operations counted as the card
+# issues them (a DPX add-max one): a scheduler issues one warp
+# instruction a clock whatever its type, and P3's int32 loop issues its
+# integer instructions faster than 64 INT32 lanes an SM would (PERF.md),
+# so half this rate is no floor.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 33.5e12
-# 32-bit integer operations: an SM has 64 INT32 lanes against 128
-# float32 ones (NVIDIA's Hopper architecture whitepaper), so half the rate
-INT32_OPS_PER_S = ALU_OPS_PER_S / 2
 
 # the single PyTorch call that computes each elementwise binop
 LIBRARY_BINOP = {"add": torch.add, "maximum": torch.maximum,
                  "compare-gt": torch.gt, "select": torch.maximum}
 
 
-def bound_ms(nbytes: float, ops: float,
-             ops_per_s: float = ALU_OPS_PER_S) -> tuple[float, float]:
+def bound_ms(nbytes: float, ops: float) -> tuple[float, float]:
     """(bytes ms, operations ms): the least times for moving nbytes
-    through HBM and for doing ops operations at ops_per_s (32-bit ALU
-    operations unless given); the bound is the larger."""
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    through HBM and for doing ops 32-bit ALU operations; the bound is
+    the larger."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
 
 
 def binop_plain(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

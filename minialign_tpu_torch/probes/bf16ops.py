@@ -14,13 +14,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._common import (W, Report, Timed, code, columns, inputs, kernel_for,
-                      launch, on, roll_up, slope, tensor)
+from ._common import (ALU_OPS_PER_S, W, Report, Timed, code, columns,
+                      inputs, kernel_for, launch, on, roll_up, slope, tensor)
 
 N_ARR = 6              # the tool's main: timing(dt, 6, steps)
 STEPS = 200_000        # the tool's main: timing at 2e5 and 4e5 steps
 REPS = 4
 TIMING_DTYPES = ("int32", "float32", "bfloat16")
+
+
+def timing_ops(dtype: str) -> float:
+    """Operations a value costs a step of the timing loop, as the card
+    issues them: on each of the N_ARR arrays two adds and two maxes (the
+    sub is an add of -1), and arrs[0] - 1 once; int32 and int16 issue
+    each add and its max as one DPX add-max (__viaddmax_s32,
+    __viaddmax_s16x2); the 16- and 8-bit types do two values an
+    operation of a 32-bit lane."""
+    per = 2 if dtype in ("int32", "int16") else 4
+    return (per * N_ARR + 1) / (1 if dtype in ("int32", "float32") else 2)
+
+
+def timing_bound_ns(dtype: str, B: int) -> float:
+    """The least ns a step of the timing loop takes on the card:
+    timing_ops on each value of a (W, B) array at the 32-bit ALU rate."""
+    return timing_ops(dtype) * W * B / ALU_OPS_PER_S * 1e9
 
 # (op code, the tool's case name, input dtype), in csrc/probe_bf16ops.cu's
 # order
@@ -152,7 +169,7 @@ def main(rep: Report, rng: np.random.Generator) -> None:
         ts = rep.loop(f"{dt} timing", "p3", lambda n: timing_loop(x, n, dev),
                       lambda n: timing_plain(x, n),
                       lambda n: timing(x, n, dev), (STEPS,),
-                      lambda n: ((x,), N_ARR * (5 * n + 1)))
+                      lambda n: ((x,), timing_ops(dt) * n + N_ARR))
         for n, t in ts or ():
             rep.say(f"  {dt}: slope {t.ns_per_step:.2f} ns/step at {n} "
                     f"steps (t1={t.t1_ms:.1f}ms t2={t.t2_ms:.1f}ms)")

@@ -8,10 +8,11 @@ isolation: per step, each of 4 (W, B) arrays takes a row roll under the
 column's direction, an add and a max, all in the loop carry. Its kernel
 keeps the fill's layout (one warp per column, W = 64), so its ns/step on
 the card says what the step mix costs per dtype and how it moves with
-the number of columns. int32 and float32 keep a value a register; int16
-and bf16 pack rows t and t + 32 into one 32-bit word, two lanes, as the
-TPU packs a 16-bit array two rows to a sublane word
-(tests/test_torch_probe_pack.py models the layout).
+the number of columns. Every type runs one column a block; int32 and
+float32 keep a value a register; int16 and bf16 pack rows t and t + 32
+into one 32-bit word, two lanes, as the TPU packs a 16-bit array two
+rows to a sublane word (tests/test_torch_probe_pack.py models the
+layout). step_bound_ns is a step's least time on the card.
 
 At the tool's 2048 steps one run takes ~0.3 ms on the card, where
 launch gaps and the clock's ramp weigh on the slope; on the card the
@@ -23,9 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._common import (BINOPS, LIBRARY_BINOP, W, Report, Timed, binop,
-                      binop_plain, carry_plain, code, columns, inputs,
-                      kernel_for, launch, on, roll_up, slope, tensor)
+from ._common import (ALU_OPS_PER_S, BINOPS, LIBRARY_BINOP, W, Report,
+                      Timed, binop, binop_plain, carry_plain, code, columns,
+                      inputs, kernel_for, launch, on, roll_up, slope, tensor)
 
 DTYPES = ("int16", "int8", "bfloat16", "float32", "int32")
 STEP_DTYPES = ("int32", "float32", "bfloat16", "int16")
@@ -34,6 +35,11 @@ STEPS = 2048           # the tool's main: step_timer(dt, 64, 128, 2048)
 LONG_STEPS = 2**17
 REPS = 5
 ROUNDS = 8
+# operations a value costs a step of the step timer, as the card issues
+# them: the roll's select, then the add and the max, which int32 and
+# int16 issue as one DPX add-max (__viaddmax_s32, __viaddmax_s16x2);
+# int16 and bfloat16 do two values an operation of a 32-bit lane
+STEP_OPS = {"int32": 2, "float32": 3, "int16": 1, "bfloat16": 1.5}
 
 
 def elementwise_plain(op: str, x: torch.Tensor,
@@ -128,6 +134,12 @@ def step_timer(x, dd, n_steps: int = STEPS, device="cuda",
                  device)
 
 
+def step_bound_ns(dtype: str, B: int) -> float:
+    """The least ns a step of the step timer takes on the card: STEP_OPS
+    on each value of the N_ARR (W, B) arrays at the 32-bit ALU rate."""
+    return STEP_OPS[dtype] * N_ARR * W * B / ALU_OPS_PER_S * 1e9
+
+
 def step_inputs(rng: np.random.Generator, dtype: str, device, B: int = 128,
                 lo: int = 0, hi: int = 4):
     """step_timer: x (W, B) from [lo, hi) (the tool's [0, 4) by default),
@@ -170,7 +182,7 @@ def main(rep: Report, rng: np.random.Generator) -> None:
                       lambda n: step_timer_plain(x, dd, n),
                       lambda n: step_timer(x, dd, n, dev),
                       (STEPS, LONG_STEPS),
-                      lambda n: ((x, dd), N_ARR * (3 * n + 1)))
+                      lambda n: ((x, dd), N_ARR * (STEP_OPS[dt] * n + 1)))
         for n, t in ts or ():
             rep.say(f"  {dt}: {t.ns_per_step:.1f} ns/step at {n} steps "
                     f"(t1={t.t1_ms:.3f}ms)")

@@ -675,6 +675,23 @@ def test_p2_packed_step_timer_matches_plain(dtype, B, dev):
                   lowprec.step_timer_plain(x, dd, n))
 
 
+@pytest.mark.parametrize("B", [37, 128, 1024])
+@pytest.mark.parametrize("dtype", ["int32", "float32", "int8", "uint8"])
+def test_p2_step_timer_one_column_a_block_matches_plain(dtype, B, dev):
+    """The int32 / float32 (and int8 / uint8) step timer, one column a
+    block, at the checked step counts, on the tool's inputs and on inputs
+    whose adds wrap (int32, the 8-bit types) or stop adding (float32 at
+    2^24) within 64 steps."""
+    rng = np.random.default_rng(25)
+    top = {"int32": (2**31 - 40, 2**31 - 1), "float32": (2**24 - 8, 2**24),
+           "int8": (100, 127), "uint8": (200, 255)}[dtype]
+    for lo, hi in ((0, 4), top):
+        x, dd = lowprec.step_inputs(rng, dtype, dev, B, lo, hi)
+        for n in (1, 7, 64, 2048):
+            _same(lowprec.step_loop(x, dd, n, dev),
+                  lowprec.step_timer_plain(x, dd, n))
+
+
 def test_probe_wrapper_takes_string_device_and_other_inputs(dev):
     """The thin path's slow side: a device named by string, numpy inputs
     and a non-contiguous tensor are moved, then launched."""
@@ -827,7 +844,7 @@ def test_sketch_kernel_matches_plain_on_edge_cases(k, dev):
     _build.reset_counts()
     runs = 0
     for w in kbench.SKETCH_W:
-        for L in kbench.sketch_lengths(k, w, cuda_sketch.TILE):
+        for L in kbench.sketch_lengths(k, w, cuda_sketch.tile(w)):
             for kind in kbench.SKETCH_KINDS:
                 codes = torch.from_numpy(
                     kbench.sketch_codes(rng, kind, L, k)).to(dev)
@@ -840,19 +857,31 @@ def test_sketch_kernel_matches_plain_on_edge_cases(k, dev):
 
 def test_sketch_kernel_past_w128_and_int64_codes(dev):
     """Windows past 128 (the index bits reach the strand bit, as in the
-    JAX function) up to the kernel's widest, and codes that are not
-    bytes (taken & 3 on the card first)."""
+    JAX function) up to the kernel's widest, at the w-block and tile
+    edges, on random and all-A codes (full ties of (h, lo) there); codes
+    that are not bytes (taken & 3 on the card first); a view that is not
+    16-byte aligned (byte loads)."""
     rng = np.random.default_rng(3)
-    for w in (129, 300, cuda_sketch.MAX_W):
-        codes = torch.from_numpy(
-            kbench.sketch_codes(rng, "random", 3000, 15)).to(dev)
-        _same_sketch(cuda_sketch.sketch_cuda(codes, 15, w),
-                     sketch_device.sketch_device_plain(codes, 15, w), w)
+    for w in kbench.SKETCH_W_WIDE:
+        for L in kbench.sketch_lengths(15, w, cuda_sketch.tile(w)):
+            for kind in ("random", "all_a"):
+                codes = torch.from_numpy(
+                    kbench.sketch_codes(rng, kind, L, 15)).to(dev)
+                _same_sketch(cuda_sketch.sketch_cuda(codes, 15, w),
+                             sketch_device.sketch_device_plain(codes, 15, w),
+                             (w, L, kind))
+    codes = torch.from_numpy(kbench.sketch_codes(rng, "random", 3000,
+                                                 15)).to(dev)
     wide = codes.to(torch.int64)
     got = sketch_device.sketch_device(wide, 15, 10)
     want = sketch_device.sketch_device(codes.cpu(), 15, 10)
     _same_sketch([got[0].view(torch.int32).cpu()] + [x.cpu() for x in got[1:]],
                  [want[0].view(torch.int32)] + list(want[1:]), "int64 codes")
+    for start in (1, 7, 15):
+        view = codes[start:]
+        _same_sketch(cuda_sketch.sketch_cuda(view, 15, 10),
+                     sketch_device.sketch_device_plain(view, 15, 10),
+                     ("offset", start))
     with pytest.raises(ValueError):
         cuda_sketch.sketch_cuda(codes, 15, cuda_sketch.MAX_W + 1)
 

@@ -6,8 +6,10 @@ sketch_jax's and the numpy path's above (both host libraries' sketch_seq
 returns no occurrence for w > 64, a fault of the reference kept as it
 is, confirmed here). Also its refusals (k = 17 in both packages, 2^31
 positions, CUDA asked for where there is none), the empty result when L
-< k, and csrc/sketch.cu's tiling (halo, the window of the position before
-a tile) modelled in numpy against the plain version."""
+< k, and csrc/sketch.cu's blocks (packed codes, k-mers by funnel shift,
+the van Herk sliding minimum on 64-bit keys, the halo block before a
+tile) modelled in numpy against the plain version at w-block and tile
+edges."""
 
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from minialign_tpu.index.sketch_jax import sketch_device as jax_sketch_device
 from minialign_tpu.index.sketch_jax import sketch_jax
 from minialign_tpu_torch import kbench
 from minialign_tpu_torch import native as tnative
+from minialign_tpu_torch.index import cuda_sketch
 from minialign_tpu_torch.index import sketch as tsketch
 from minialign_tpu_torch.index.sketch_device import (sketch_device,
                                                      sketch_device_plain,
@@ -129,59 +132,124 @@ def test_sketch_torch_without_a_device_raises_where_cuda_is_absent(
         sketch_torch(np.zeros(100, np.int8), 15, 10)
 
 
-def tile_model(codes, k, w, tile):
-    """csrc/sketch.cu's blocks in numpy: each tile of positions hashes
-    its slots from tile0 - w on (positions before 0 as (BIG, BIG)), scans
-    each of its positions' windows and the position before the tile, and
-    compares neighbours within the tile."""
-    # each position's own hash and strand: the sketch at w = 1
-    h, _, strand, _ = (x.numpy().astype(np.int64) for x in
-                       sketch_device_plain(torch.from_numpy(codes), k, 1))
-    n = len(codes) - k + 1
-    big = 0xFFFFFFFF
-    h &= big                          # the uint32 the kernel compares
-    lo = (np.arange(n) % w) | (strand << 7)
-    out = [np.zeros(n, np.int64) for _ in range(4)]
-    for tile0 in range(0, n, tile):
-        base = tile0 - w
-        H = np.full(tile + w, big)
-        LO = np.full(tile + w, big)
-        for j in range(tile + w):
-            q = base + j
-            if 0 <= q < n:
-                H[j], LO[j] = h[q], lo[q]
+U64 = np.uint64
+TIE = (1 << 21) - 1        # csrc/sketch.cu's key slot field
 
-        def scan(j):
-            mh = ml = big
-            d_at = 0
-            for d in range(w - 1, -1, -1):
-                sh, sl = H[j - d], LO[j - d]
-                if sh < mh or (sh == mh and sl <= ml):
-                    mh, ml, d_at = sh, sl, d
-            return mh, ml, d_at
-        MH = {0: scan(w - 1)[:2]} if tile0 > 0 else {}
-        for i in range(min(tile, n - tile0)):
-            mh, ml, d_at = scan(w + i)
-            MH[i + 1] = (mh, ml)
-            p = tile0 + i
-            same_prev = p > 0 and MH[i] == (mh, ml)
-            is_self = mh == H[w + i] and ml == LO[w + i]
-            for a, v in zip(out, (mh, p if is_self else p - d_at,
-                                  (ml >> 7) & 1,
-                                  (not same_prev) or is_self)):
-                a[p] = v
+
+def _brev32(x):
+    """Bit reversal of uint64 words < 2^32 (csrc/sketch.cu's __brev)."""
+    for sh, m in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F),
+                  (8, 0x00FF00FF), (16, 0x0000FFFF)):
+        x = ((x >> U64(sh)) & U64(m)) | ((x & U64(m)) << U64(sh))
+    return x
+
+
+def tile_model(codes, k, w, blocks):
+    """csrc/sketch.cu's blocks in numpy, tiles of `blocks` w-blocks
+    (cuda_sketch.tile_blocks(w) in the kernel): each tile packs its codes
+    (from the w-block before it, a halo, to k - 1 past its end; outside
+    [0, L) as 0) 16 to a word, first code in the top bits, beside each
+    word's reverse complement; takes each slot's k-mers by funnel shifts
+    and its 64-bit key (h << 32 | lo << 21 | TIE - slot, BIG outside [0,
+    n)); takes the windows' minima by van Herk / Gil-Werman on the
+    w-blocks (a block's prefix minima, the suffix minima of the block
+    before), each w-block's in segments as the kernel's lanes take them;
+    and reads each position's outputs and emission from its
+    window's key and the slot before's (at the tile's first position the
+    halo block's last)."""
+    codes = np.asarray(codes).astype(np.int64) & 3
+    L = len(codes)
+    n = L - k + 1
+    T = blocks * w
+    nb = blocks + 1
+    mask = U64((1 << (2 * k)) - 1)
+    m32 = U64(0xFFFFFFFF)
+    big = U64(0xFFFFFFFFFFFFFFFF)
+    out = [np.zeros(n, np.int64) for _ in range(4)]
+    for tile0 in range(0, n, T):
+        base = tile0 - w                       # slot 0's position
+        cbase = base & ~15                     # the first word's code
+        d0 = base - cbase
+        nw = (nb * w - 1 + k - 1 + d0) // 16 + 2
+        q = cbase + np.arange(16 * nw)
+        c = np.where((q >= 0) & (q < L), codes[np.clip(q, 0, L - 1)], 0)
+        W = (c.reshape(nw, 16).astype(U64)
+             << (U64(30) - U64(2) * np.arange(16, dtype=U64))).sum(1,
+                                                                  dtype=U64)
+        y = _brev32(W)
+        R = ~(((y & U64(0x55555555)) << U64(1))
+              | ((y >> U64(1)) & U64(0x55555555))) & m32
+        j = np.arange(nb * w)
+        off = j + d0
+        i, s = off >> 4, U64(2) * (off & 15).astype(U64)
+        # __funnelshift_l(W[i + 1], W[i], s); __funnelshift_r(R[i],
+        # R[i + 1], s)
+        fwd = (((W[i] << U64(32)) | W[i + 1]) << s) >> U64(32) & m32
+        k0 = fwd >> U64(32 - 2 * k)
+        k1 = (((R[i + 1] << U64(32)) | R[i]) >> s) & mask
+        h = np.minimum(k0, k1)
+        lo = (j % w).astype(U64) | ((k1 <= k0).astype(U64) << U64(7))
+        key = (h << U64(32)) | (lo << U64(21)) | (U64(TIE) - j.astype(U64))
+        pq = base + j
+        key[(pq < 0) | (pq >= n)] = big
+        # a w-block's S segments of G slots (cuda_sketch.segments): each
+        # segment's prefix and suffix minima, completed by the minima of
+        # the segments before and after it
+        S = cuda_sketch.segments(nb)
+        G = cuda_sketch.segment_len(w, S)
+        kb = np.full((nb, S * G), big)
+        kb[:, :w] = key.reshape(nb, w)
+        kb = kb.reshape(nb, S, G)
+        z = kb.min(2)
+        cp = np.minimum.accumulate(np.concatenate(
+            [np.full((nb, 1), big), z[:, :-1]], 1), axis=1)
+        cs = np.minimum.accumulate(np.concatenate(
+            [z[:, 1:], np.full((nb, 1), big)], 1)[:, ::-1], axis=1)[:, ::-1]
+        pre = np.minimum(np.minimum.accumulate(kb, axis=2), cp[:, :, None])
+        suf = np.minimum(np.minimum.accumulate(kb[:, :, ::-1], axis=2)
+                         [:, :, ::-1], cs[:, :, None])
+        pre = pre.reshape(nb, S * G)[:, :w]
+        suf = suf.reshape(nb, S * G)[:, :w]
+        win = pre.copy()                       # a block's last: the block
+        win[1:, :w - 1] = np.minimum(suf[:-1, 1:], pre[1:, :w - 1])
+        win = win.reshape(-1)
+        cnt = min(T, n - tile0)
+        sl = w + np.arange(cnt)
+        m, prev = win[sl], win[sl - 1]
+        arg = U64(TIE) - (m & U64(TIE))
+        same = (m >> U64(21)) == (prev >> U64(21))
+        self_ = arg == sl.astype(U64)
+        p = slice(tile0, tile0 + cnt)
+        out[0][p] = (m >> U64(32)).astype(np.int64)
+        out[1][p] = base + arg.astype(np.int64)
+        out[2][p] = ((m >> U64(28)) & U64(1)).astype(np.int64)
+        out[3][p] = ~same | self_
     return out
 
 
-@pytest.mark.parametrize("k,w,tile", [(15, 10, 32), (4, 3, 8), (16, 128, 64),
-                                      (1, 1, 8), (10, 64, 16)])
-def test_kernel_tiling_model_matches_plain(k, w, tile):
-    rng = np.random.default_rng(k + w + tile)
-    for kind in kbench.SKETCH_KINDS:
-        for L in (k, k + tile - 1, k + tile, 2 * tile + k, 3 * tile + k + 5):
-            codes = kbench.sketch_codes(rng, kind, L, k)
-            want = sketch_device_plain(torch.from_numpy(codes), k, w)
-            for g, x in zip(tile_model(codes, k, w, tile), want):
-                np.testing.assert_array_equal(g, x.numpy().astype(np.int64)
-                                              & 0xFFFFFFFF)
+# 600 and 1024: the kernel's tiles of 3 and of 2 w-blocks
+TILE_W = (1, 3, 10, 64, 128, 129, 300, 600, 1024)
 
+
+@pytest.mark.parametrize("w", TILE_W)
+@pytest.mark.parametrize("k", (1, 15, 16))
+def test_kernel_tiling_model_matches_plain(k, w):
+    """The model at tiles of 4 w-blocks (so that short codes reach the
+    tile edges), or of the kernel's own count where that is fewer, on
+    every code kind, at kbench.sketch_lengths (the w-block and tile
+    edges); and at the kernel's own tile once."""
+    rng = np.random.default_rng(100 * k + w)
+    blocks = min(4, cuda_sketch.tile_blocks(w))
+    cases = [(kind, L) for kind in kbench.SKETCH_KINDS
+             for L in kbench.sketch_lengths(k, w, blocks * w) if L >= k]
+    cases.append(("random", cuda_sketch.tile(w) + w + k + 5))
+    for kind, L in cases:
+        codes = kbench.sketch_codes(rng, kind, L, k)
+        want = sketch_device_plain(torch.from_numpy(codes), k, w)
+        nblk = blocks if L < cuda_sketch.tile(w) else \
+            cuda_sketch.tile_blocks(w)
+        for name, g, x in zip(("hash", "pos", "strand", "emit"),
+                              tile_model(codes, k, w, nblk), want):
+            np.testing.assert_array_equal(
+                g, x.numpy().astype(np.int64) & 0xFFFFFFFF,
+                err_msg=f"{name} k={k} w={w} L={L} {kind}")
