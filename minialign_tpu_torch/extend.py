@@ -3,12 +3,17 @@ FillEngine.
 
 Carries the host half of minialign_tpu/extend.py unchanged (_key, Seg,
 Aln, split_segments, Bin, rle_paths_py, _SearchState, _load_next,
-extend_read and helpers); only the imports differ. See that module's
-docstring for the scheduling design and the reference citations.
+extend_read and helpers); only the imports differ, and extend_read
+records its `pipeline.seed` and `pipeline.chain` spans (stats.py). See
+that module's docstring for the scheduling design and the reference
+citations.
 
 FillEngine is new: it runs the same requests through the port's
 kernels (the fill reading the sequence stores -> traceback walk, dp/),
-on a named device.
+on a named device, and records its spans and counters (stats.py):
+`engine.submit` up to a run's last launch, `engine.harvest` for the rest,
+`engine.wait` around each blocking read-back, the counter `engine.rounds`
+(one a run: one host-device round trip) and the launch shapes.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import os
 import numpy as np
 import torch
 
+from . import stats
 from .chain import (_u, _v, chain_seeds, collect_seeds, coords_to_xy,
                     seed_round)
 from .device import resolve_device
@@ -253,7 +259,11 @@ def _general(side) -> bool:
 def _host(t: torch.Tensor) -> np.ndarray:
     """A device result on the host: the engine's only reads (a harvest's
     summary and run-length entries), each one waiting for the stream."""
-    return t.cpu().numpy()
+    sp = stats.begin("engine.wait") if stats.ON else None
+    h = t.cpu().numpy()
+    if sp is not None:
+        stats.end(sp)
+    return h
 
 
 def host_walk(p: ScoreParams, summ: np.ndarray, W: int, bufs) -> list:
@@ -326,27 +336,6 @@ class FillEngine:
         self.device = resolve_device(device)
         self.batch = batch or 512     # problems per launch
         self._ref_src = None
-        # launch-shape statistics (MINIALIGN_STATS=1 prints at exit), as
-        # the JAX engine keeps them (minialign_tpu/extend.py:307-325):
-        # (kind, n_real, B) per traced launch batch ("trace": the walk
-        # on the device; "duo"), n_real the problem count rounded up to
-        # 16 as the JAX engine counts it, B the launch's own problem
-        # count (the port pads no dispatch). None when the flag is unset
-        # so that long-lived processes don't grow the list.
-        self.stats = None
-        if os.environ.get("MINIALIGN_STATS"):
-            import atexit
-
-            self.stats = []
-
-            def _dump(st=self.stats):
-                import collections
-                import sys
-                c = collections.Counter(st)
-                for k, n in sorted(c.items()):
-                    print(f"[stats] {k[0]} nreal={k[1]} B={k[2]} "
-                          f"x{n}", file=sys.stderr)
-            atexit.register(_dump)
 
     def _store(self, parts) -> torch.Tensor:
         """The flat store on the device."""
@@ -465,6 +454,7 @@ class FillEngine:
         by host_walk) and (score, mi, mj, up score, up mi, up mj, trace)
         per duo request (always dtrace). On the card the variable is
         ignored: its walk stays there."""
+        sp = stats.begin("engine.submit") if stats.ON else None
         out = [None] * len(reqs)
         groups = {}
         for i, req in enumerate(reqs):
@@ -491,7 +481,8 @@ class FillEngine:
                 if kind == "duo":
                     pending.append((sub, kind) + self._duo_batch(
                         [reqs[i] for i in sub], W))
-                    self._stat("duo", len(sub))
+                    if stats.ON:
+                        stats.launch("duo", len(sub))
                     continue
                 side, nb, general = self._batch(
                     [reqs[i][1] for i in sub], [reqs[i][2] for i in sub])
@@ -507,7 +498,8 @@ class FillEngine:
                     pending.append((sub, kind) + dtrace(
                         self.p, W, bufs.masks, bufs.dirs, bufs.iheads,
                         res.max_score, res.max_i, res.max_j))
-                    self._stat("trace", len(sub))
+                    if stats.ON:
+                        stats.launch("trace", len(sub))
                 else:
                     res = fill_store(self.p, W, nb, False, *side,
                                      general=general)
@@ -515,6 +507,10 @@ class FillEngine:
                         [res.max_score, res.max_i, res.max_j])))
         # held: the walk's run-length entries on the device, or the host
         # walk's (W, trace buffers)
+        if sp is not None:
+            stats.end(sp)
+            stats.add("engine.rounds")
+        sp = stats.begin("engine.harvest") if stats.ON else None
         for sub, kind, held, summ_d in pending:
             summ = _host(summ_d)
             if kind == "down":
@@ -528,11 +524,9 @@ class FillEngine:
                 out[i] = ups[s] if kind != "duo" else (
                     int(summ[-3, s]), int(summ[-2, s]), int(summ[-1, s]),
                     *ups[s])
+        if sp is not None:
+            stats.end(sp)
         return out
-
-    def _stat(self, kind: str, B: int) -> None:
-        if self.stats is not None:
-            self.stats.append((kind, -(-B // 16) * 16, B))
 
     def _duo_batch(self, reqs, W):
         """Launches one duo batch; returns (rle, summary) on the device,
@@ -763,13 +757,19 @@ def extend_read(mp: MapParams, mi: MMIndex, qcodes: np.ndarray, qid: int,
     crem = MM_CREM
 
     for rnd in range(len(mi.occ)):
+        sp = stats.begin("pipeline.seed", qid=qid) if stats.ON else None
         if rnd == 0:
             st_seed = collect_seeds(mi, qf)
         seeds = seed_round(mi, st_seed, rnd)
+        if sp is not None:
+            stats.end(sp)
         if seeds is None or len(seeds) == 0:
             continue
+        sp = stats.begin("pipeline.chain", qid=qid) if stats.ON else None
         chains = chain_seeds(seeds, twlen, lens=mi.lens,
                              circular=mi.circular)
+        if sp is not None:
+            stats.end(sp)
         if not chains:
             continue
 

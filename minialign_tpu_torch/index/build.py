@@ -1,5 +1,7 @@
 """Copy of minialign_tpu/index/build.py for the port, unchanged apart from
-this header (its imports are relative, so they resolve in this package).
+this header and build_index's spans (stats.py): `index.sketch` around
+the sketch passes, `index.sort` around the bucket sort and the table's
+assembly (its imports are relative, so they resolve in this package).
 
 Minimizer reference index.
 
@@ -34,6 +36,7 @@ from typing import Sequence
 
 import numpy as np
 
+from .. import stats
 from ..params import IndexParams
 from .sketch import sketch
 
@@ -236,6 +239,7 @@ def build_index(params: IndexParams, names: Sequence[str],
     from .. import native
     stream = native.available() and 0 < (2 * k - b) <= 32
 
+    sp = stats.begin("index.sketch") if stats.ON else None
     if stream:
         # pass 1: per-bucket counts only (triples discarded — the
         # second sketch pass is far cheaper than holding them)
@@ -262,6 +266,9 @@ def build_index(params: IndexParams, names: Sequence[str],
             native.idx_scatter(h, pos.astype(np.uint32), rid, b,
                                cursors, hs, vp, vr)
         del cursors
+        if sp is not None:
+            stats.end(sp)
+        sp = stats.begin("index.sort") if stats.ON else None
         nk = native.idx_sort_count(hs, vp, vr, boff)
         keys = np.empty(nk, np.uint64)
         offsets = np.empty(nk + 1, np.uint32)
@@ -283,6 +290,9 @@ def build_index(params: IndexParams, names: Sequence[str],
         pos = np.concatenate(ps_l) if ps_l else np.empty(0, np.uint32)
         rid = np.concatenate(rs_l) if rs_l else np.empty(0, np.uint32)
         del hs_l, ps_l, rs_l
+        if sp is not None:
+            stats.end(sp)
+        sp = stats.begin("index.sort") if stats.ON else None
         bucket = (h & mask).astype(np.int64)
         order = np.argsort(bucket, kind="stable")
         h, pos, rid, bucket = (h[order], pos[order], rid[order],
@@ -336,7 +346,7 @@ def build_index(params: IndexParams, names: Sequence[str],
     else:
         occ[:] = 1
 
-    return MMIndex(
+    mi = MMIndex(
         k=k, w=w, occ=occ, frq=tuple(params.frq),
         names=list(names),
         lens=np.asarray([len(c) for c in codes], np.int64),
@@ -345,3 +355,6 @@ def build_index(params: IndexParams, names: Sequence[str],
         keys=keys, offsets=offsets, vals_pos=pos_out,
         vals_rid=rid_out, b=b, bkt_off=bkt_off,
     )
+    if sp is not None:
+        stats.end(sp)
+    return mi

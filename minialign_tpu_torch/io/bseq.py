@@ -1,5 +1,6 @@
 """Copy of minialign_tpu/io/bseq.py for the port, unchanged apart from
-this header (its imports are relative, so they resolve in this package).
+this header and read_batches' `io.parse` span (stats.py; its imports are
+relative, so they resolve in this package).
 
 FASTA/FASTQ batch reader.
 
@@ -28,6 +29,8 @@ import gzip
 import io as _io
 
 import numpy as np
+
+from .. import stats
 
 
 @dataclasses.dataclass
@@ -301,13 +304,22 @@ def _parse_bam(data: bytes, keep_qual: bool, min_len: int,
 
 def read_batches(path: str, batch_size: int = 512 * 1024, **kw):
     """Yield lists of Seq totalling ~batch_size bases (bseq_read
-    batching, minialign.c:2105)."""
+    batching, minialign.c:2105). Each batch is one `io.parse` span, from
+    its first read to its yield."""
     batch, total = [], 0
+    stats.tick()
+    sp = stats.begin("io.parse") if stats.ON else None
     for s in read_seqs(path, **kw):
         batch.append(s)
         total += len(s.codes)
         if total >= batch_size:
+            if sp is not None:
+                stats.end(sp)
             yield batch
             batch, total = [], 0
+            stats.tick()
+            sp = stats.begin("io.parse") if stats.ON else None
+    if sp is not None:
+        stats.end(sp)
     if batch:
         yield batch

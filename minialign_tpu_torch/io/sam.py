@@ -17,13 +17,15 @@ Format semantics from the reference printer (minialign.c:4734-5701):
 
 Carried from the JAX package's minialign_tpu/io/sam.py unchanged; only
 the imports differ (the JAX module reaches jax through its extend/band
-imports).
+imports), and SamWriter times each read's records, their writes to
+the sink included, as one `io.format` span (stats.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import stats
 from ..extend import Aln
 from ..params import (TAG_AS, TAG_IH, TAG_MD, TAG_NH, TAG_NM, TAG_RG, TAG_SA,
                       TAG_XS)
@@ -239,6 +241,12 @@ class SamWriter:
           f"\tCL:{self.arg_line}\n")
 
     def unmapped(self, seq):
+        sp = stats.begin("io.format") if stats.ON else None
+        self._unmapped(seq)
+        if sp is not None:
+            stats.end(sp)
+
+    def _unmapped(self, seq):
         qual = seq.qual.decode() if seq.qual else "*"
         self.out.write(
             f"{seq.name}\t4\t*\t0\t0\t*\t*\t0\t0\t"
@@ -258,8 +266,14 @@ class SamWriter:
         one record per path segment (head first; circular-origin splits
         produce several), flag 0x800 after the first primary record,
         0x100 for every secondary-alignment record."""
+        sp = stats.begin("io.format") if stats.ON else None
+        self._mapped(ref_names, ref_lens, ref_codes, seq, reg)
+        if sp is not None:
+            stats.end(sp)
+
+    def _mapped(self, ref_names, ref_lens, ref_codes, seq, reg):
         if reg is None:
-            self.unmapped(seq)
+            self._unmapped(seq)
             return
         n = reg.n_uniq if self.omit_rep else len(reg.alns)
         flag = 0

@@ -8,7 +8,14 @@ in lockstep batches (see extend.py docstring).
 
 Carried from the JAX package's minialign_tpu/pipeline.py unchanged; only
 the imports differ (the JAX module reaches jax through its extend/band
-imports).
+imports), and align_batch records its spans and counters (stats.py):
+`pipeline.extend` around each loop that sends to the extension
+generators (their seeding and chaining, and the engine's calls, are
+spans of their own inside it), `pipeline.post` around the sequential
+stale-rlen pass and around the post-processing, `engine.submit` around
+the upload of the batch's sequence stores, and the counters
+`pipeline.reads` and `pipeline.replays` (reads re-run by the stale-rlen
+pass).
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import dataclasses
 
 import numpy as np
 
+from . import stats
 from .extend import Aln, FillEngine, extend_read
 from .index.build import MMIndex
 from .params import MapParams
@@ -65,9 +73,10 @@ def _postprocess(mp: MapParams, out) -> Reg | None:
     return Reg(alns=alns, n_uniq=n_uniq)
 
 
-def _pump_single(engine, g):
+def _pump_single(engine, g, qid: int = -1):
     """Drive one extension generator to completion (used for stale-rlen
     replays; see align_batch)."""
+    sp = stats.begin("pipeline.extend", qid=qid) if stats.ON else None
     try:
         req = g.send(None)
         while True:
@@ -75,6 +84,9 @@ def _pump_single(engine, g):
             req = g.send(out)
     except StopIteration as e:
         return e.value
+    finally:
+        if sp is not None:
+            stats.end(sp)
 
 
 def align_batch(mp: MapParams, mi: MMIndex, reads: list,
@@ -95,6 +107,9 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
     guess disagrees with the true stale value."""
     engine = engine or FillEngine(mp.score)
     tb = tbuf if tbuf is not None else {"rlen": 0}
+    stats.tick()
+    if stats.ON:
+        stats.add("pipeline.reads", len(reads))
     # device-resident sequence store: avoids per-dispatch sequence
     # uploads by building band inputs with on-device gathers. Default
     # ON for Pallas backends since round 3's DMA-gather kernel
@@ -108,12 +123,16 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
         env == "1" or (env not in ("0", "") and
                        getattr(engine, "use_pallas", False)))
     if use_store:
+        sp = stats.begin("engine.submit", base_qid) if stats.ON else None
         engine.set_index(mi)
         engine.set_queries([np.asarray(c, np.int8) for c in reads])
+        if sp is not None:
+            stats.end(sp)
     duo = (use_store and getattr(engine, "supports_duo", False)
            and os.environ.get("MINIALIGN_DUO", "1") != "0")
     results = {}
     active = {}
+    sp = stats.begin("pipeline.extend", base_qid) if stats.ON else None
     for i, codes in enumerate(reads):
         # the batch's first read sees a known stale rlen (exact); the
         # rest speculate and are replayed below on a wrong guess
@@ -129,9 +148,13 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
             active[i] = (g, req)
         except StopIteration as e:
             results[i] = e.value
+    if sp is not None:
+        stats.end(sp)
 
     def drive(act: dict, res: dict) -> None:
         while act:
+            sp = stats.begin("pipeline.extend", base_qid) if stats.ON \
+                else None
             idxs = list(act.keys())
             reqs = [act[i][1] for i in idxs]
             outs = engine.run(reqs)
@@ -145,6 +168,8 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
                     res[i] = e.value
             act.clear()
             act.update(nxt)
+            if sp is not None:
+                stats.end(sp)
 
     # scheduler workers: with >1, each thread drives an interleaved
     # share of the reads through its own dispatch rounds, so one
@@ -184,7 +209,9 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
 
     # sequential stale-rlen pass: walk reads in order, replay any whose
     # speculative first-root bounds test disagrees with the true value
+    sp = stats.begin("pipeline.post", base_qid) if stats.ON else None
     cur = tb["rlen"]
+    replays = 0
     for i in range(len(reads)):
         out = results.get(i)
         if out is None:
@@ -201,7 +228,8 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
                                 qidx=i if use_store else None,
                                 tbuf={"rlen": cur, "spec": False},
                                 duo=duo)
-                out = _pump_single(engine, g)
+                replays += 1
+                out = _pump_single(engine, g, base_qid + i)
                 results[i] = out
                 rec = out[2] if out is not None else None
         if rec is not None and rec["out_rlen"] is not None:
@@ -215,5 +243,12 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
                 "first": rec["first"], "fired": rec["fired"],
                 "out_rlen": rec["out_rlen"], "qlen": len(reads[i])})
     tb["rlen"] = cur
+    if sp is not None:
+        stats.end(sp)
+        stats.add("pipeline.replays", replays)
 
-    return [_postprocess(mp, results.get(i)) for i in range(len(reads))]
+    sp = stats.begin("pipeline.post", base_qid) if stats.ON else None
+    regs = [_postprocess(mp, results.get(i)) for i in range(len(reads))]
+    if sp is not None:
+        stats.end(sp)
+    return regs

@@ -6,7 +6,7 @@ the CPU engine in subprocesses: prewarm exits 0 with its stderr line;
 with MINIALIGN_STATS=1 the [stats] lines at exit count exactly the
 engine's traced launch batches (the walk on the device) and duo batches,
 nreal being the problem count rounded up to 16 and B the launch's own;
-without the variable the engine keeps no statistics."""
+without the variable the recorder that keeps them (stats.py) is off."""
 
 import collections
 import json
@@ -93,7 +93,22 @@ def test_stats_lines_count_the_engine_batches(duo):
 
 
 def test_no_stats_without_the_variable(monkeypatch):
+    """The launch shapes live in the recorder (stats.py), which only the
+    variable (or a profiler, or start()) turns on."""
+    from minialign_tpu_torch import stats
     monkeypatch.delenv("MINIALIGN_STATS", raising=False)
-    assert FillEngine(MapParams().score, device="cpu").stats is None
-    monkeypatch.setenv("MINIALIGN_STATS", "1")
-    assert FillEngine(MapParams().score, device="cpu").stats == []
+    was = stats.ON
+    try:
+        stats.stop()
+        stats.reset()
+        assert not stats.from_env() and not stats.ON
+        FillEngine(MapParams().score, device="cpu")
+        assert stats.read()["launch_shapes"] == []
+        monkeypatch.setenv("MINIALIGN_STATS", "1")
+        assert stats.from_env() and stats.ON
+        assert stats.read()["launch_shapes"] == []
+    finally:
+        stats.stop()
+        stats.reset()
+        if was:
+            stats.start()
