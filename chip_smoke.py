@@ -46,7 +46,10 @@ Phases, in order; any failure exits non-zero before the result line:
      fills counted, exactly three launches a duo batch (the down fill
      with the duo epilogue, the traced up fill, the walk), one a batch
      of downs and two a batch of ups (the fill, the walk), every fill in
-     store mode and no gather; the port's host library loaded; the
+     store mode and no gather; one seed pass a read batch, three seed
+     launches a pass (two where no read is kept or none finds a seed;
+     the kernels line's seed launches are these); the port's host
+     library loaded; the
      problems of each traced fill launch. Then phases 3-4 again at the
      median of those launch sizes (20 kb): the kernels timed, their
      results held to phase 3's plain ones for the same problems; a
@@ -125,6 +128,15 @@ Phases, in order; any failure exits non-zero before the result line:
      peak device memory;
      (d) python -m minialign_tpu_torch.prewarm on the card, exit 0, with
      its wall
+  12 the batch seed pass (csrc/seed.cu, index/seed_device.py): for each
+     benchmark configuration (SEED_CONFIGS), its genome, index and one
+     8 MiB batch of reads made as the benchmark makes them; the pass
+     (FillEngine.seed_round0) equal to seed_pass_plain on the card and to
+     collect_seeds read by read; its kernels' device time, its wall a
+     batch against the host's per-read seeding, the plain version's time,
+     launches (three a pass, read from the counter), the bytes' bound,
+     the tables' upload and the pass's device memory. Alone: python3 -c 'import chip_smoke;
+     chip_smoke.phase12_main()'
   8  neither jax nor minialign_tpu imported; the kernels' JSON line,
      then the result line
 
@@ -266,6 +278,9 @@ KERNELS = {
                "minialign_tpu/parallel/shard.py:95"),
     "sketch": ("minialign_tpu_torch/csrc/sketch.cu",
                "minialign_tpu/index/sketch_jax.py:39"),
+    "seed": ("minialign_tpu_torch/csrc/seed.cu",
+             "none: the JAX package seeds on the host "
+             "(minialign_tpu/chain.py:collect_seeds)"),
     "p1": ("minialign_tpu_torch/csrc/probe_subint32.cu",
            "tests/tools/probe_subint32.py:15"),
     "p2": ("minialign_tpu_torch/csrc/probe_lowprec.cu",
@@ -276,7 +291,7 @@ KERNELS = {
            "tests/tools/probe_wordstream.py:26"),
 }
 U64_END = 1 << 64
-MAPPER = ("fill", "fused", "dtrace", "duo")  # the CLI's kernels
+MAPPER = ("fill", "fused", "dtrace", "duo", "seed")  # the CLI's kernels
 SHARDED = ("fill", "fused", "dtrace", "lookup")  # the sharded pipeline's
 PROBES = ("p1", "p2", "p3", "p4")            # the probes' kernels
 
@@ -316,6 +331,13 @@ SKETCH_OPS = 8 + 3 + 5 + 15 + 8
 
 SKETCH_GENOME = 250_000_000    # bases: GRCh38 chr1 has 248,956,422
 SKETCH_SEED = 12
+
+# phase 12: the batch seed pass on one 8 MiB batch (the CLI's default
+# batch) of each benchmark configuration's reads, made from SEED_SEED
+SEED_CONFIGS = ("ecoli-pacbio", "dm6-10k")
+SEED_BATCH = 8 * 1024 * 1024
+SEED_SEED = 3900000013
+SEED_REPS = 10
 
 
 def edge_pairs(np, rng):
@@ -578,12 +600,14 @@ def phase9(np, torch, card, stats, ref_fa, reads_fq):
         got = shard.align_batch_sharded(mp, mi, reads, mesh)
         torch.cuda.synchronize()
         swall = time.time() - t1
-        n = {k: _build.LAUNCHES[k] for k in SHARDED + ("duo", "gather")}
+        n = {k: _build.LAUNCHES[k] for k in SHARDED + ("duo", "gather",
+                                                      "seed")}
     finally:
         native._lib, native._tried = lib_, tried
     if got != want:
         fail("align_batch_sharded over [cuda:0, cuda:0] != align_batch")
-    if not all(n[k] for k in SHARDED) or n["duo"] or n["gather"]:
+    if not all(n[k] for k in SHARDED) or n["duo"] or n["gather"] or \
+            n["seed"]:
         fail(f"sharded pipeline: launches {n}")
     say(f"[9b] ShardedIndex.lookup == MMIndex.lookup on {len(q_e2e)} "
         f"hashes; align_batch_sharded over [cuda:0, cuda:0], native "
@@ -951,6 +975,166 @@ def phase11(np, torch, card, stats, ref_fa, reads_fq):
     say(f"[11d] python -m minialign_tpu_torch.prewarm: rc 0, wall "
         f"{wall:.1f} s; {line[0]}")
     say(f"[11] phase 11 took {time.time() - t11:.1f} s")
+    return launches
+
+
+def _seed_device_ms(torch, fn):
+    """Device ms of the seed pass's three kernels a call of fn (the
+    profiler's kernel events named seed_*; the pass reads back between
+    its kernels, so events around the call would time the host too): the
+    mean over SEED_REPS calls, by kernel. A profile that holds none of
+    the three kernels (after the earlier phases' profilers in the same
+    process one came back empty) is taken again, twice at most."""
+    from torch.profiler import ProfilerActivity, profile
+    names = ("seed_count", "seed_scan", "seed_write")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(SEED_REPS):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            for name in names:
+                if name in e.key:
+                    t = getattr(e, "device_time_total", None)
+                    if t is None:
+                        t = e.cuda_time_total
+                    out[name] = out.get(name, 0.0) + t / 1e3 / SEED_REPS
+        if set(out) == set(names):
+            return out
+    fail(f"seed pass: the profiler saw {sorted(out)} of {names}")
+
+
+def phase12(np, torch, card, stats):
+    """The batch seed pass (csrc/seed.cu, index/seed_device.py) at the main
+    path's shapes: for each benchmark configuration, its genome and index
+    made as the benchmark makes them (seed SEED_SEED) and one 8 MiB batch
+    of its reads, FillEngine.seed_round0 on the card equal to
+    seed_pass_plain on the card, word for word, and to the host's
+    collect_seeds read by read; the kernels' device time by kernel, the
+    pass's wall a batch, the host's per-read seeding a batch, the plain
+    version's time, launches, the bytes' bound and the device memory.
+    Returns the kernels' launches."""
+    from benchmark import gen
+    from minialign_tpu_torch import _build, chain, cli, kbench
+    from minialign_tpu_torch.extend import FillEngine, seeds_read
+    from minialign_tpu_torch.index import seed_device as sd
+    from minialign_tpu_torch.index.build import build_index
+    from minialign_tpu_torch.index.sketch import sketch
+    dev = torch.device("cuda", 0)
+    t12 = time.time()
+    launches = 0
+    res = {}
+    for name in SEED_CONFIGS:
+        t0 = time.time()
+        with open(os.path.join(ROOT, "benchmark", "configs",
+                               name + ".json")) as f:
+            cfg = json.load(f)
+        o = cli.Opts()
+        cli.parse_argv(o, list(cfg["preset"]))
+        cli.finalize(o)
+        ip, mp = cli.make_params(o)
+        genome = gen.genome(SEED_SEED, cfg["genome"]["length"])
+        mi = build_index(ip, [cfg["genome"]["name"]], [genome])
+        pool = gen.Pool.make(SEED_SEED, genome, cfg["reads"],
+                             2 * SEED_BATCH)
+        reads, total = [], 0
+        while total < SEED_BATCH:
+            reads.append(pool.codes(len(reads)))
+            total += len(reads[-1])
+        made_s = time.time() - t0
+        if not sd.eligible(mi):
+            fail(f"seed pass: the {name} index is not eligible")
+        eng = FillEngine(mp.score, device=dev)
+        eng.set_queries(reads)
+        idxs = [i for i, c in enumerate(reads) if seeds_read(mp, mi, len(c))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tab = sd.tables(mi, dev)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        tab_bytes = sum(x.numel() * x.element_size() for x in (
+            tab.keys, tab.bkt_off, tab.offsets, tab.vals_pos, tab.vals_rid))
+        del tab
+        _build.reset_counts()
+        got = eng.seed_round0(mi, idxs)
+        n = _build.LAUNCHES["seed"]
+        if n != 3:
+            fail(f"seed pass ({name}): {n} launches for one batch")
+        launches += n
+        # the kernel against its plain version on the card
+        off = np.asarray([eng._q_bases[i][0] for i in idxs], np.int64)
+        ln = np.asarray([eng._q_len[i] for i in idxs], np.int64)
+        args = (eng._q_store, off, ln, eng._seed_tab, mi.k, mi.w,
+                int(mi.max_occ), int(mi.occ[0]))
+        _build.reset_counts()
+        ks, ko = sd.seed_pass_cuda(*args)
+        launches += _build.LAUNCHES["seed"]
+        ps, po = sd.seed_pass_plain(*args)
+        if not (np.array_equal(ks, ps) and torch.equal(ko, po)):
+            fail(f"seed pass ({name}): kernel != seed_pass_plain")
+        del po
+        _, pms = kbench.timed(torch, lambda: sd.seed_pass_plain(*args))
+        # and the host's per-read seeding
+        t0 = time.perf_counter()
+        want = {i: chain.collect_seeds(mi, reads[i]) for i in idxs}
+        host_ms = (time.perf_counter() - t0) * 1e3
+        for i in idxs:
+            w = want[i]
+            if not all(a.dtype == b.dtype and np.array_equal(a, b)
+                       for a, b in zip(got[i], (w.upos, w.vpos, w.rid,
+                                                w.resc))):
+                fail(f"seed pass ({name}): read {i} != collect_seeds")
+        n_seed, n_resc = int(ks[-1, 0]), int(ks[-1, 1])
+        n_pos = int(sum(max(len(reads[i]) - mi.k + 1, 0) for i in idxs))
+        n_min = sum(len(sketch(reads[i], mi.k, mi.w)[0]) for i in idxs)
+        del want, ko
+        # times
+        _build.reset_counts()
+        kms = _seed_device_ms(torch, lambda: sd.seed_pass_cuda(*args))
+        launches += _build.LAUNCHES["seed"]
+        walls = []
+        _build.reset_counts()
+        for _ in range(SEED_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.seed_round0(mi, idxs)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sd.seed_pass_cuda(*args)
+        launches += _build.LAUNCHES["seed"]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        nbytes = sd.pass_bytes(n_pos, n_min, n_seed, n_resc)
+        bd = bound(nbytes, 0)
+        ms = sum(kms.values())
+        res[name] = dict(ms=ms, kernels_ms=kms, wall_ms=sorted(walls)[
+            len(walls) // 2], host_ms=host_ms, plain_ms=pms, reads=len(idxs),
+            positions=n_pos, minimizers=n_min, seeds=n_seed,
+            rescue_rows=n_resc, tables_bytes=tab_bytes, upload_s=upload_s,
+            peak_bytes=peak, **bd)
+        say(f"[12] seed pass, {name} (k={mi.k} w={mi.w}, {len(mi.keys)} "
+            f"keys, tables {tab_bytes} B up in {upload_s:.3f} s; inputs "
+            f"made in {made_s:.1f} s): one batch of {len(idxs)} reads, "
+            f"{n_pos} positions, {n_min} minimizers, {n_seed} seeds, "
+            f"{n_resc} rescue rows, equal to seed_pass_plain on the card "
+            f"and to collect_seeds read by read; kernels "
+            + ", ".join(f"{k} {v:.4f}" for k, v in kms.items())
+            + f" ms device time ({ms:.4f} in all), seed_round0 "
+            f"{fmt(sorted(walls))} ms a batch (wall: launches, read-backs, "
+            f"split), the host's collect_seeds {host_ms:.1f} ms, the plain "
+            f"version {pms:.1f} ms; {show(bd)} ({nbytes} bytes); the pass "
+            f"peaks at {peak} B of device memory; on {card}")
+        del eng, args, reads, mi, genome, pool
+    if stats is not None:
+        stats["seed"].update(library_ms=None, **res.get("ecoli-pacbio", {}),
+                             configs=res)
+    say(f"[12] phase 12 took {time.time() - t12:.1f} s, {launches} seed "
+        f"launches, each counted")
     return launches
 
 
@@ -1416,10 +1600,29 @@ def main():
         fills.append((trace, duo is not None))
         return engine_fill(p, W, nb, trace, *a, duo=duo, **kw)
 
+    # and the batches' query uploads and seed passes: a pass is three
+    # seed launches (seed_count, seed_scan, seed_write), less seed_count
+    # where it has no read and seed_write where it finds no seed
+    passes = []                        # launches a pass should make
+    uploads = []
+
+    def counted_seeds(self, mi, idxs):
+        got = seeds0(self, mi, idxs)
+        passes.append(1 + bool(idxs) + any(len(x[0]) or len(x[3])
+                                           for x in got.values()))
+        return got
+
+    def counted_queries(self, reads):
+        uploads.append(1)
+        return queries(self, reads)
+
     builders = FillEngine._duo_batch, FillEngine._batch
     engine_fill = extend.fill_store
+    seeds0, queries = FillEngine.seed_round0, FillEngine.set_queries
     FillEngine._duo_batch = counted(builders[0], "duo")
     FillEngine._batch = counted(builders[1], "plain")
+    FillEngine.seed_round0 = counted_seeds
+    FillEngine.set_queries = counted_queries
     extend.fill_store = counted_fill
     for env in ("1", "0"):
         os.environ["MINIALIGN_DUO"] = env
@@ -1427,6 +1630,8 @@ def main():
         made["duo"].clear()
         made["plain"].clear()
         fills.clear()
+        passes.clear()
+        uploads.clear()
         torch.cuda.synchronize()
         t0 = time.time()
         out = run_cli(cli, ["-t1", "-xpacbio", ref_fa, reads_fq])
@@ -1443,15 +1648,18 @@ def main():
                 or (n["duo"] > 0) != (env == "1"):
             fail(f"real size, MINIALIGN_DUO={env}: launches {n}")
         want = dict(fill=2 * nd + n_down + n_up, fused=2 * nd + n_down + n_up,
-                    dtrace=nd + n_up, duo=nd, gather=0)
+                    dtrace=nd + n_up, duo=nd, seed=sum(passes), gather=0)
         if n != want or sum(d for _, d in fills) != nd or \
                 n_down + n_up != npl or \
-                n["fill"] + n["dtrace"] != 3 * nd + n_down + 2 * n_up:
+                n["fill"] + n["dtrace"] != 3 * nd + n_down + 2 * n_up or \
+                len(passes) != len(uploads):
             fail(f"real size: launches {n} for {nd} duo batches, {n_down} "
                  f"of downs and {n_up} of ups (a duo batch: the down fill "
                  f"with the duo epilogue, the traced up fill, the walk; a "
                  f"batch of downs: its fill; of ups: its fill and walk; "
-                 f"every fill in store mode, no gather)")
+                 f"every fill in store mode, no gather) and {len(passes)} "
+                 f"seed passes {passes} for {len(uploads)} read batches "
+                 f"(one pass a batch)")
         if env == "1":
             launches = n
             batches = sorted(_build.TRACED_FILL_B)
@@ -1464,10 +1672,14 @@ def main():
             f"{nbases / wall / 1e6:.3f} Mbases/s, launches {n} "
             f"({n['fill'] + n['dtrace']} in all) for {nd} duo batches, "
             f"{n_down} of downs and {n_up} of ups: three a duo batch, one "
-            f"a batch of downs, two a batch of ups, exactly; problems per "
-            f"traced fill launch {sorted(_build.TRACED_FILL_B)} on {card}")
+            f"a batch of downs, two a batch of ups, exactly; seed "
+            f"{n['seed']} for {len(uploads)} read batches, one pass each "
+            f"({passes.count(3)} of three launches, {passes.count(2)} of "
+            f"two, {passes.count(1)} of one); problems per traced fill "
+            f"launch {sorted(_build.TRACED_FILL_B)} on {card}")
     del os.environ["MINIALIGN_DUO"]
     FillEngine._duo_batch, FillEngine._batch = builders
+    FillEngine.seed_round0, FillEngine.set_queries = seeds0, queries
     extend.fill_store = engine_fill
     # the reads on stdin at -t2: the threaded source/drain pipeline, the
     # scheduler threads on one engine
@@ -1748,6 +1960,10 @@ def main():
     # ---- 11: the device sketch
     launches["sketch"] = phase11(np, torch, card, stats, ref_fa, reads_fq)
 
+    # ---- 12: the batch seed pass at the main path's shapes (its launches
+    # are its own; the kernels line keeps phase 6's, the CLI's)
+    phase12(np, torch, card, stats)
+
     # ---- 8
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "minialign_tpu"))
@@ -1761,6 +1977,33 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def phase12_main():
+    """Phases 0, 1 and 12 alone: the card, the build, the seed pass."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+
+    from minialign_tpu_torch import _build
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        "nvidia-smi gave nothing"
+    say(f"[0] card: {card}; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}")
+    t0 = time.time()
+    _build.library()
+    say(f"[1] kernels built in {time.time() - t0:.1f} s")
+    for line in _build.BUILD_LOG.splitlines():
+        if "seed" in line or "spill" in line:
+            say("    " + line.strip())
+    stats = {"seed": {}}
+    n = phase12(np, torch, card, stats)
+    print(json.dumps({"seed": stats["seed"], "launches": n}))
 
 
 if __name__ == "__main__":

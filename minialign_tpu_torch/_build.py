@@ -35,9 +35,9 @@ PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
 SOURCES = ("fill.cu", "gather.cu", "dtrace.cu", "lookup.cu", "sketch.cu",
-           "probe_subint32.cu", "probe_lowprec.cu", "probe_bf16ops.cu",
-           "probe_wordstream.cu")
-HEADERS = ("probe_common.cuh",)
+           "seed.cu", "probe_subint32.cu", "probe_lowprec.cu",
+           "probe_bf16ops.cu", "probe_wordstream.cu")
+HEADERS = ("probe_common.cuh", "sketch_core.cuh")
 LIB = os.path.join(BUILD, "libminialign_cuda.so")
 ARCH = "arch=compute_90a,code=sm_90a"
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -46,11 +46,12 @@ FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # the mapper's kernels ("fused": a fill that reads its windows from the
 # sequence stores, D2, counted as a fill too; "duo": the fill's duo
 # epilogue, counted once a launch that runs it), the sharded index's
-# lookup (parallel/), the device minimizer sketch (index/), then the
+# lookup (parallel/), the device minimizer sketch and the batch seed pass
+# (index/; "seed" counts each of its three kernels' launches), then the
 # step-mix probes P1-P4 (probes/), and the probes' launch floor, an empty
 # kernel (probes/_common.launch_floor: kbench.py only)
 LAUNCHES = {"fill": 0, "fused": 0, "gather": 0, "dtrace": 0, "duo": 0,
-            "lookup": 0, "sketch": 0,
+            "lookup": 0, "sketch": 0, "seed": 0,
             "p1": 0, "p2": 0, "p3": 0, "p4": 0, "noop": 0}
 TRACED_FILL_B: list[int] = []
 FUSED_SHAPES: list[tuple] = []        # (B, La, Lb, W, trace)
@@ -77,6 +78,9 @@ _SIGS = {
     "lookup_launch": [_P, _P, _P, _P, _P, _P, _I, _LL, _P, _LL, _P, _I, _I,
                       _P],
     "sketch_launch": [_P, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "seed_count_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _LL, _P, _I,
+                          _P, _LL, _LL, _P, _P, _P, _P, _P],
+    "seed_write_launch": [_I, _I, _LL, _P, _P, _P, _P, _P, _LL, _P, _P],
     # the probes' entries end in (device index, stream)
     "p1_probe_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
     "p2_elementwise_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _P],

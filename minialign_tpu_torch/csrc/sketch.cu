@@ -33,7 +33,8 @@
 //   of one window, w + k - 1 codes, is a small share) and stages its
 //   codes once, packed 16 to a 32-bit word, first code in the top bits,
 //   from 16-byte loads, with each word's reverse complement beside it. A
-//   k-mer is then two funnel shifts and a shift or mask: no k-loop.
+//   k-mer is then two funnel shifts and a shift or mask: no k-loop
+//   (sketch_core.cuh, which the batch seed pass seed.cu shares).
 // - The sliding minimum is van Herk / Gil-Werman's on w-aligned blocks
 //   of w positions: a thread takes a block, keeps its keys and prefix
 //   minima (one pass, which also hashes), then its suffix minima
@@ -59,7 +60,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "sketch_core.cuh"
+
 namespace {
+
+using sketch_core::kmer_pair;
+using sketch_core::min64;
 
 constexpr int BLOCK = 256;                 // threads a block
 constexpr int MAX_W = 1024;
@@ -73,45 +79,6 @@ size_t smem_bytes(int k, int w, int blocks) {
   const int nb = blocks + 1;
   const int nw = (nb * w + k + 13) / 16 + 2;
   return 16 * (size_t)w * (nb | 1) + 16 * (size_t)nw;
-}
-
-// four bytes (the first at the lowest address) as four 2-bit codes, the
-// first in the top bits of the result's low byte
-__device__ __forceinline__ uint32_t pack4(uint32_t x) {
-  x = __byte_perm(x & 0x03030303u, 0, 0x0123);   // first code at byte 3
-  x |= x >> 6;
-  x |= x >> 12;
-  return x & 0xffu;
-}
-
-// 16 codes from position q0 on, packed first code in the top bits;
-// codes outside [0, L) count as 0
-__device__ __forceinline__ uint32_t pack16(const uint8_t* __restrict__ codes,
-                                           long long L, long long q0,
-                                           bool aligned) {
-  if (aligned && q0 >= 0 && q0 + 16 <= L) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(codes + q0));
-    return pack4(v.x) << 24 | pack4(v.y) << 16 | pack4(v.z) << 8 |
-           pack4(v.w);
-  }
-  uint32_t r = 0;
-  for (int j = 0; j < 16; ++j) {
-    const long long q = q0 + j;
-    const uint32_t c = (q >= 0 && q < L) ? (codes[q] & 3u) : 0u;
-    r |= c << (30 - 2 * j);
-  }
-  return r;
-}
-
-// the complemented codes in reverse order, first code in the low bits:
-// the bit-reversed word has each code's two bits swapped; swap them back
-__device__ __forceinline__ uint32_t revcomp(uint32_t wd) {
-  const uint32_t y = __brev(wd);
-  return ~(((y & 0x55555555u) << 1) | ((y >> 1) & 0x55555555u));
-}
-
-__device__ __forceinline__ uint64_t min64(uint64_t a, uint64_t b) {
-  return b < a ? b : a;
 }
 
 // Pass 1 for the slots [r0, r1) of the w-block b: every slot's key, and
@@ -130,10 +97,8 @@ __device__ __forceinline__ uint64_t hash_segment(
   uint64_t pm = BIG;
   int a = r0 * nbp + b;
   for (int r = r0; r < r1; ++r) {
-    const uint4 v = Q[off >> 4];           // W[i], W[i+1], R[i], R[i+1]
-    const int s = (off & 15) * 2;
-    const uint32_t k0 = __funnelshift_l(v.y, v.x, s) >> sh;
-    const uint32_t k1 = __funnelshift_r(v.z, v.w, s) & mask;
+    uint32_t k0, k1;
+    kmer_pair(Q, off, sh, mask, &k0, &k1);
     // The hash, (crc32c(kx) ^ km) & mask, is km = min(k0, k1): for every
     // kx < 2^32, _mm_crc32_u64(kx, kx) == 0. The accumulator starts at
     // kx and takes kx's eight bytes LSB first; by induction it is
@@ -222,19 +187,8 @@ sketch_kernel(const uint8_t* __restrict__ codes, long long L, int k, int w,
   const int d0 = (int)(base - cbase);
   const int nw = (nb * w - 1 + k - 1 + d0) / 16 + 2;
 
-  // the packed words: lane l packs word i0 + l; lanes 0-30 store Q[i]
-  // with the next lane's word beside their own
-  {
-    const int lane = t & 31;
-    for (int i0 = (t >> 5) * 31; i0 < nw; i0 += (BLOCK / 32) * 31) {
-      const int i = i0 + lane;
-      const uint32_t wd = pack16(codes, L, cbase + 16ll * i, aligned);
-      const uint32_t rc = revcomp(wd);
-      const uint32_t wn = __shfl_down_sync(0xffffffffu, wd, 1);
-      const uint32_t rn = __shfl_down_sync(0xffffffffu, rc, 1);
-      if (lane < 31 && i < nw) Q[i] = make_uint4(wd, wn, rc, rn);
-    }
-  }
+  // the packed words (sketch_core::stage_words)
+  sketch_core::stage_words(Q, codes, L, cbase, nw, aligned);
   __syncthreads();
 
   // Pass 1 (pass1 above)

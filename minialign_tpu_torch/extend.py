@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from . import stats
-from .chain import (_u, _v, chain_seeds, collect_seeds, coords_to_xy,
-                    seed_round)
+from .chain import (SeedState, _u, _v, chain_seeds, collect_seeds,
+                    coords_to_xy, seed_round)
 from .device import resolve_device
 from .dp import band
 from .dp.band import fill_store
@@ -34,6 +34,7 @@ from .dp.cuda_gather import pack_desc, upload
 from .dp.dtrace import SUMMARY_ROWS, dtrace
 from .dp.duo import CAPU_ADD, pack_geom
 from .dp.traceback import TraceResult, _identity, traceback_one
+from .index import seed_device
 from .index.build import MMIndex
 from .params import MapParams, ScoreParams
 
@@ -328,6 +329,9 @@ class FillEngine:
 
     use_pallas = True
     supports_duo = True
+    # the devices whose query stores seed_round0 seeds a batch at a time
+    # (seeds_batch); on the others each read seeds itself in extend_read
+    seed_devices = ("cuda",)
 
     def __init__(self, score: ScoreParams, batch: int | None = None,
                  device: str | torch.device = "cuda"):
@@ -336,6 +340,8 @@ class FillEngine:
         self.device = resolve_device(device)
         self.batch = batch or 512     # problems per launch
         self._ref_src = None
+        self._seed_src = None         # the index whose tables _seed_tab holds
+        self._seed_pin = None         # the seed pass's host buffer (a card's)
 
     def _store(self, parts) -> torch.Tensor:
         """The flat store on the device."""
@@ -371,6 +377,44 @@ class FillEngine:
             lens.append(len(c))
         self._q_store = self._store(parts)
         self._q_bases, self._q_len = bases, lens
+
+    def seeds_batch(self, mi) -> bool:
+        """Whether align_batch takes a batch's round-0 seeds from
+        seed_round0: the engine's device is one of seed_devices and
+        index/seed_device takes mi (k <= 16, w <= 64, bucket-major)."""
+        return (self.device.type in self.seed_devices
+                and seed_device.eligible(mi))
+
+    def seed_round0(self, mi, idxs) -> dict:
+        """Round-0 seeds of the reads idxs of the last set_queries, as
+        chain.collect_seeds gives them a read at a time: {i: (upos, vpos,
+        rid, resc)}, from one pass over the query store
+        (index/seed_device.seed_pass: the kernel on a card). mi's tables go
+        to the device at its first pass (kept while mi.keys is the same
+        object). A card's output comes back in one copy into a pinned
+        buffer that only grows; the arrays are views of it, valid until the
+        next pass."""
+        if self._seed_src is not mi.keys:
+            self._seed_tab = seed_device.tables(mi, self.device)
+            self._seed_src = mi.keys
+        off = np.asarray([self._q_bases[i][0] for i in idxs], np.int64)
+        ln = np.asarray([self._q_len[i] for i in idxs], np.int64)
+        sums, out = seed_device.seed_pass(
+            self._q_store, off, ln, self._seed_tab, mi.k, mi.w,
+            int(mi.max_occ), int(mi.occ[0]))
+        if out.device.type == "cuda":
+            n = out.numel()
+            if self._seed_pin is None or self._seed_pin.numel() < n:
+                # PyTorch's pinned allocator keeps every block it hands
+                # out and rounds each request up to a power of two: free
+                # the old buffer first and take a whole block, so that a
+                # size class is held once
+                self._seed_pin = None
+                self._seed_pin = torch.empty(1 << (n - 1).bit_length(),
+                                             dtype=torch.int32,
+                                             pin_memory=True)
+            out = self._seed_pin[:n].copy_(out)
+        return dict(zip(idxs, seed_device.split(sums, out.numpy())))
 
     def _side_meta(self, specs):
         """Per-problem (base, start, cap, seglen, wrap, elen) rows of one
@@ -715,14 +759,25 @@ def _load_next(st: _SearchState, seeds, tglen: int, rid: int, qlen: int,
     return st.srem > 0
 
 
+def seeds_read(mp: MapParams, mi: MMIndex, qlen: int) -> bool:
+    """Whether extend_read seeds a read of qlen bases at all (long enough
+    for a k-mer and for the least score)."""
+    return not (qlen < mi.k or qlen * mp.score.mcoef < mp.min_score)
+
+
 def extend_read(mp: MapParams, mi: MMIndex, qcodes: np.ndarray, qid: int,
                 qidx: int | None = None, tbuf: dict | None = None,
-                duo: bool = False):
+                duo: bool = False, seeds0: tuple | None = None):
     """Generator: yields ('down'|'up', a, b, W) requests, receives
     (score, mi, mj, trace) via .send(). Returns (res, slots, rec) where
     res is a list of [accumulated_score, Bin] and slots the global
     aln-slot list (mm_align_seq up to the extend stage,
     minialign.c:4427-4450).
+
+    seeds0, when given, is the read's round-0 seeds as collect_seeds
+    would give them, (upos, vpos, rid, resc), precomputed for the batch
+    (FillEngine.seed_round0); collect_seeds is then not called. seed_round
+    only reassigns the state's arrays, so the same arrays serve a replay.
 
     tbuf carries the reference's per-thread-buffer state: the root
     bounds test in mm_search_load_pos (minialign.c:3828) reads
@@ -741,7 +796,7 @@ def extend_read(mp: MapParams, mi: MMIndex, qcodes: np.ndarray, qid: int,
     rec = {"first": None, "fired": False, "out_rlen": None}
     if tbuf is None:
         tbuf = {"rlen": 0, "spec": False}
-    if qlen < mi.k or qlen * score_p.mcoef < mp.min_score:
+    if not seeds_read(mp, mi, qlen):
         return None
 
     qf = np.ascontiguousarray(np.asarray(qcodes, np.int8))
@@ -759,7 +814,8 @@ def extend_read(mp: MapParams, mi: MMIndex, qcodes: np.ndarray, qid: int,
     for rnd in range(len(mi.occ)):
         sp = stats.begin("pipeline.seed", qid=qid) if stats.ON else None
         if rnd == 0:
-            st_seed = collect_seeds(mi, qf)
+            st_seed = (collect_seeds(mi, qf) if seeds0 is None else
+                       SeedState(*seeds0, presc=0))
         seeds = seed_round(mi, st_seed, rnd)
         if sp is not None:
             stats.end(sp)

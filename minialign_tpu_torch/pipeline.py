@@ -6,16 +6,19 @@ pool with one read per worker; here a single host thread coordinates
 many in-flight reads and the device executes their extension requests
 in lockstep batches (see extend.py docstring).
 
-Carried from the JAX package's minialign_tpu/pipeline.py unchanged; only
-the imports differ (the JAX module reaches jax through its extend/band
-imports), and align_batch records its spans and counters (stats.py):
-`pipeline.extend` around each loop that sends to the extension
-generators (their seeding and chaining, and the engine's calls, are
-spans of their own inside it), `pipeline.post` around the sequential
-stale-rlen pass and around the post-processing, `engine.submit` around
-the upload of the batch's sequence stores, and the counters
-`pipeline.reads` and `pipeline.replays` (reads re-run by the stale-rlen
-pass).
+Carried from the JAX package's minialign_tpu/pipeline.py; the imports
+differ (the JAX module reaches jax through its extend/band imports), on
+the store path a batch's round-0 seeds may come from one device pass
+(FillEngine.seed_round0, below) instead of a host call a read, and
+align_batch records its spans and counters (stats.py): `pipeline.extend`
+around each loop that sends to the extension generators (their seeding
+and chaining, and the engine's calls, are spans of their own inside it),
+`pipeline.seed` around the batch's seed pass, `pipeline.post` around the
+sequential stale-rlen pass and around the post-processing,
+`engine.submit` around the upload of the batch's sequence stores, and
+the counters `pipeline.reads`, `pipeline.seed_batched` (reads whose
+round-0 seeds came from the batch pass) and `pipeline.replays` (reads
+re-run by the stale-rlen pass).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import dataclasses
 import numpy as np
 
 from . import stats
-from .extend import Aln, FillEngine, extend_read
+from .extend import Aln, FillEngine, extend_read, seeds_read
 from .index.build import MMIndex
 from .params import MapParams
 from .post import post_map, prune_regs
@@ -130,6 +133,21 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
             stats.end(sp)
     duo = (use_store and getattr(engine, "supports_duo", False)
            and os.environ.get("MINIALIGN_DUO", "1") != "0")
+    # round-0 seeds of the whole batch in one pass over the query store
+    # (FillEngine.seed_round0: the kernel on a card) where the engine
+    # takes them that way (FillEngine.seeds_batch: its device and the
+    # index); every other read seeds itself in extend_read
+    pre = {}
+    if use_store and hasattr(engine, "seeds_batch") and \
+            engine.seeds_batch(mi):
+        sp = stats.begin("pipeline.seed", base_qid, base_qid) \
+            if stats.ON else None
+        pre = engine.seed_round0(mi, [i for i, c in enumerate(reads)
+                                      if seeds_read(mp, mi, len(c))])
+        if sp is not None:
+            stats.end(sp)
+    if stats.ON:
+        stats.add("pipeline.seed_batched", len(pre))
     results = {}
     active = {}
     sp = stats.begin("pipeline.extend", base_qid) if stats.ON else None
@@ -139,7 +157,7 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
         tbi = {"rlen": tb["rlen"], "spec": i != 0}
         g = extend_read(mp, mi, np.asarray(codes), base_qid + i,
                         qidx=i if use_store else None, tbuf=tbi,
-                        duo=duo)
+                        duo=duo, seeds0=pre.get(i))
         if g is None:
             results[i] = None
             continue
@@ -227,7 +245,7 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
                                 base_qid + i,
                                 qidx=i if use_store else None,
                                 tbuf={"rlen": cur, "spec": False},
-                                duo=duo)
+                                duo=duo, seeds0=pre.get(i))
                 replays += 1
                 out = _pump_single(engine, g, base_qid + i)
                 results[i] = out

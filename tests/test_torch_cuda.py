@@ -34,6 +34,7 @@ from minialign_tpu_torch.index.sketch import sketch as host_sketch
 from minialign_tpu_torch.params import MapParams, ScoreParams
 from minialign_tpu_torch.probes import bf16ops, lowprec, subint32, wordstream
 from minialign_tpu_torch.probes._common import tensor
+import test_torch_seed_device
 from test_torch_cli import cli_run
 from test_torch_oracle_port import PORT_PARAMS, cross_check
 
@@ -893,6 +894,54 @@ def test_sketch_torch_matches_host_sketch_on_cuda(dev):
         got = sketch_device.sketch_torch(genome, k, w)
         for g, x in zip(got, host_sketch(genome, k, w), strict=True):
             assert g.dtype == x.dtype and np.array_equal(g, x), (k, w)
+
+
+@pytest.mark.parametrize("case", test_torch_seed_device.CASES)
+def test_seed_pass_kernel_matches_plain(case, dev):
+    """The batch seed pass on the card (csrc/seed.cu, three launches) gives
+    seed_pass_plain's sums and output word for word, and each read what
+    collect_seeds gives it, on the CPU tests' cases (reads across several
+    of the kernel's tiles among them)."""
+    from minialign_tpu_torch.index import seed_device
+    mi, reads = test_torch_seed_device._case(case)
+    idxs = list(range(len(reads)))
+    eng = test_torch_seed_device._engine(reads, dev)
+    _build.reset_counts()
+    got = eng.seed_round0(mi, idxs)
+    assert _build.LAUNCHES["seed"] in (2, 3)
+    cpu = test_torch_seed_device._engine(reads)
+    off = np.asarray([b[0] for b in eng._q_bases], np.int64)
+    ln = np.asarray(eng._q_len, np.int64)
+    ks, ko = seed_device.seed_pass_cuda(
+        eng._q_store, off, ln, eng._seed_tab, mi.k, mi.w, mi.max_occ,
+        int(mi.occ[0]))
+    ps, po = seed_device.seed_pass_plain(
+        cpu._q_store, off, ln, seed_device.tables(mi, torch.device("cpu")),
+        mi.k, mi.w, mi.max_occ, int(mi.occ[0]))
+    assert np.array_equal(ks, ps) and torch.equal(ko.cpu(), po)
+    for i in idxs:
+        test_torch_seed_device._same(got[i], mi, reads[i])
+
+
+def test_align_batch_seed_pass_on_cuda(dev):
+    """align_batch on the card seeds the batch in one pass (three seed
+    launches, collect_seeds not called) and maps as the CPU engine on its
+    default path (collect_seeds a read) maps."""
+    from minialign_tpu_torch import extend
+    from minialign_tpu_torch.extend import FillEngine
+    from minialign_tpu_torch.pipeline import align_batch
+    mi, mp = test_torch_seed_device._index(), MapParams()
+    reads = test_torch_seed_device._reads_for_map()
+    want = align_batch(mp, mi, reads, FillEngine(mp.score, device="cpu"))
+    orig, calls = extend.collect_seeds, []
+    extend.collect_seeds = lambda m, q: calls.append(1) or orig(m, q)
+    try:
+        _build.reset_counts()
+        got = align_batch(mp, mi, reads, FillEngine(mp.score, device=dev))
+    finally:
+        extend.collect_seeds = orig
+    assert calls == [] and _build.LAUNCHES["seed"] == 3
+    test_torch_seed_device._regs_equal(got, want)
 
 
 @pytest.mark.parametrize("W", [16, 32, 64])
