@@ -32,6 +32,17 @@ def window(ctx) -> dict | None:
     return _memo[key]
 
 
+def intervals() -> list | None:
+    """Every span that the recorder closed, as stats.read()'s intervals
+    (trace.read keeps those inside its window), or None without the
+    recorder."""
+    try:
+        from minialign_tpu_torch import stats
+    except ImportError:
+        return None
+    return stats.read()["intervals"]
+
+
 def span_ms_per_mbase(ctx, name: str, field: str = "total_s"):
     """A span's total (or self) time over the window's scheduler threads,
     in ms a read Mbase of the window."""

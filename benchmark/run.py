@@ -3,20 +3,20 @@
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-Set-up (all of it in setup_s): the cell's genome as FASTA and a read
-pool as FASTQ, made from the seed under $TMPDIR; the index built by the
-port's CLI path (cli.parse_argv / finalize / make_params, then
-cli._iter_index_blocks, which calls index.build.build_index); the engine
-made as cli.main makes it on one card (extend.FillEngine); one small
-warm-up batch, not counted.
+The frame here is the same for every cell; what a cell's traffic does
+is its mode's (modes/<mode>.py, named by the traffic file's "mode" key,
+found by spec.mode; modes/__init__.py lists the hooks). A mode with no
+file, or limits whose keys are not the mode's checks, stop the run
+before any set-up.
 
-The window drives the CLI's single-process mapping loop (the -t1 branch
-of cli._map_block) batch by batch: io.bseq.read_batches on the FASTQ at
-the CLI's default batch size, pipeline.align_batch on the engine, and
-io.sam.SamWriter into an in-memory sink that counts and hashes the
-bytes. It ends on the first batch that completes after --seconds
-(window.py). After it, the judge (judge.py) holds a sample of what it
-printed, and the program's index, against the plain reference.
+Set-up (all of it in setup_s, from T_START): the mode's inputs, made
+from the seed under $TMPDIR; its CLI options; its index, built by the
+port's CLI path (timed alone: index_build_s); its engine and writer;
+its warm-up batch, not counted. The window (window.py) runs the mode's
+batches through its `process` until the first batch that completes
+after --seconds; the output goes into an in-memory sink that counts and
+hashes the bytes. After it, the program's state is freed and the mode's
+judge holds a sample of what it printed against the plain reference.
 
 --trace 0 prints the cell's end-to-end metrics, --trace 1 its per-layer
 ones, from a run under torch.profiler with the harness's spans around
@@ -39,15 +39,14 @@ import resource  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
-import threading  # noqa: E402
 
-from . import gen, judge, spec, trace, window  # noqa: E402
+from . import program, spec, trace, window  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "minialign_tpu")
 
 
 class Sink:
-    """The SAM stream: counted and hashed, kept only where captured."""
+    """The output stream: counted and hashed, kept only where captured."""
 
     def __init__(self):
         self.nbytes = 0
@@ -62,75 +61,12 @@ class Sink:
             self.cap.append(s)
 
 
-class NullSink:
-    def write(self, s: str) -> None:
-        pass
-
-
 class Spans:
     def __init__(self):
         self.d = {k: [] for k in trace.SPAN_ORDER}
 
     def add(self, name: str, t0: int, t1: int) -> None:
         self.d[name].append((t0, t1))
-
-
-class EngineProxy:
-    """Stands in for the engine in a traced run: times each engine.run and
-    counts the moves that the walk made; everything else is the engine's
-    (align_batch takes its engine as an argument)."""
-
-    def __init__(self, engine, spans: Spans, counters: dict):
-        self._e = engine
-        self._spans = spans
-        self._c = counters
-        self._lock = threading.Lock()
-
-    def __getattr__(self, name):
-        return getattr(self._e, name)
-
-    def run(self, reqs):
-        t0 = time.perf_counter_ns()
-        out = self._e.run(reqs)
-        t1 = time.perf_counter_ns()
-        moves = probs = 0
-        for req, o in zip(reqs, out):
-            s, i, j = (o[3], o[4], o[5]) if req[0] == "duo" else o[:3]
-            if req[0] != "down" and s > 0:
-                moves += i + j
-                probs += 1
-        with self._lock:
-            self._spans.add("engine.run", t0, t1)
-            self._c["walk_moves"] += moves
-            self._c["walk_problems"] += probs
-        return out
-
-
-def _count_fills(extend_mod, held: list):
-    """Keeps each fill's per-problem step counts (a traced run only)."""
-    orig = extend_mod.fill_store
-
-    def fill_store(p, W, max_blocks, traced, *a, **kw):
-        r = orig(p, W, max_blocks, traced, *a, **kw)
-        res = r if hasattr(r, "n_steps") else r[0]
-        held.append((W, bool(traced), res.n_steps))
-        return r
-    extend_mod.fill_store = fill_store
-    return orig
-
-
-def _fill_counters(held: list, counters: dict) -> None:
-    import torch
-    for tr in (False, True):
-        key = "traced" if tr else "untraced"
-        for W in sorted({w for w, t, _ in held if t == tr}):
-            ns = [x for w, t, x in held if t == tr and w == W]
-            steps = int(torch.cat([x.reshape(-1).to(torch.int64)
-                                   for x in ns]).sum())
-            counters[f"fill_steps.{key}"] += steps
-            counters[f"fill_cells.{key}"] += W * steps
-            counters[f"fill_problems.{key}"] += sum(int(x.numel())
-                                                    for x in ns)
 
 
 def _rss_gb() -> float:
@@ -152,128 +88,37 @@ def _union_ns(iv: list) -> int:
 def run_cell(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool,
              device: str, workdir: str, t_start: float | None = None,
              sample=(48, 8), n_blocks: int = 16) -> dict:
-    """Set-up, window and judge of one run. Returns the readings that the
+    """Set-up, window and judge of one run, the steps of the mix's mode
+    (modes/<mode>.py) between the frame's. Returns the readings that the
     metric readers take (`ctx`), the checks and the counts."""
     import torch
 
     t_start = time.monotonic() if t_start is None else t_start
-    g = cfg["genome"]
-    genome = gen.genome(seed, g["length"])
-    fasta = os.path.join(workdir, "genome.fa")
-    fastq = os.path.join(workdir, "reads.fq")
-    with open(fasta, "wb") as f:
-        f.write(gen.fasta_bytes(g["name"], genome))
-    pool = gen.Pool.make(seed, genome, cfg["reads"],
-                         int(mix["pool_mbases"] * 1e6))
-    pool.write_fastq(fastq)
-
-    from minialign_tpu_torch import __version__, _build, cli, extend, native
-    from minialign_tpu_torch.device import resolve_device
-    from minialign_tpu_torch.extend import FillEngine
-    from minialign_tpu_torch.io import bseq
-    from minialign_tpu_torch.io.sam import SamWriter
-    from minialign_tpu_torch.params import MM_OMIT_REP
-    from minialign_tpu_torch.pipeline import align_batch
-
-    native.tune_malloc()
-    argv = list(cfg["preset"]) + [fasta, fastq]
-    o = cli.Opts(arg_line="minialign-tpu " + " ".join(argv))
-    cli.parse_argv(o, argv)
-    cli.finalize(o)
-    if o.ecnt:
-        raise ValueError(f"preset {cfg['preset']} refused")
-    if o.batch_size != mix["batch_bases"]:
-        raise ValueError(f"the CLI's batch is {o.batch_size} bases, the mix "
-                         f"says {mix['batch_bases']}")
-    ip, mp = cli.make_params(o)
-    mp.score.check()
+    m = spec.mode(mix).Mode(cfg, mix, seed, device, workdir,
+                            sample=sample, n_blocks=n_blocks)
+    cuda = torch.device(device).type == "cuda"
+    m.inputs()
+    m.prepare()
     t_idx = time.monotonic()
     rss = {"inputs": _rss_gb()}
-    mi = next(cli._iter_index_blocks(o, [fasta], ip))
+    m.index()
     index_build_s = time.monotonic() - t_idx
     rss["index"] = _rss_gb()
-    dev = resolve_device(device)
-    engine = FillEngine(mp.score, device=dev)
+    m.engine()
     sink = Sink()
-    kw = dict(tags=tuple(o.tags), rg_line=o.rg_line, rg_id=o.rg_id,
-              arg_line=o.arg_line, version=__version__,
-              omit_rep=bool(o.flag & MM_OMIT_REP))
-    wr = SamWriter(sink, **kw)
-    wr.header(mi.names, mi.lens)
-
-    def batches(size):
-        return bseq.read_batches(fastq, batch_size=size,
-                                 keep_qual=o.keep_qual, min_len=o.min_len,
-                                 tags=tuple(o.tag_names))
-
-    # warm-up: the first reads of the pool, not counted
-    warm = next(batches(mix["warmup_bases"]))
-    wwr = SamWriter(NullSink(), **kw)
-    for s, reg in zip(warm, align_batch(mp, mi, [s.codes for s in warm],
-                                        engine, base_qid=0,
-                                        tbuf={"rlen": 0})):
-        wwr.mapped(mi.names, mi.lens, mi.codes, s, reg)
-    del warm
-    if dev.type == "cuda":
+    m.writer(sink)
+    m.warm_up()
+    if cuda:
         torch.cuda.synchronize()
     gc.collect()
     rss["warm-up"] = _rss_gb()
 
-    picks = judge.sample(gen._rng(seed, 3), pool.length, *sample)
-    want = set(picks)
-    seen: set = set()
-    records: dict = {}
     spans = Spans()
-    counters = dict.fromkeys(
-        ["walk_moves", "walk_problems"]
-        + [f"fill_{a}.{b}" for a in ("steps", "cells", "problems")
-           for b in ("untraced", "traced")], 0)
-    held: list = []
-    eng = engine
-    orig_fill = None
-    if traced:
-        eng = EngineProxy(engine, spans, counters)
-        orig_fill = _count_fills(extend, held)
-    launches0 = _build.LAUNCHES["fill"]
-    shapes0 = len(_build.FUSED_SHAPES)
-    tb = {"rlen": 0}
-    state = {"n_reads": 0}
+    counters: dict = {}
+    batches, process = m.open_window(spans, counters, traced)
     pc = time.perf_counter_ns
-
-    def process(item):
-        i0, batch = item
-        t0 = pc()
-        regs = align_batch(mp, mi, [s.codes for s in batch], eng,
-                           base_qid=state["n_reads"], tbuf=tb)
-        t1 = pc()
-        for s, reg in zip(batch, regs):
-            i = int(s.name[1:])
-            if i in want and i not in records:
-                sink.cap = []
-                wr.mapped(mi.names, mi.lens, mi.codes, s, reg)
-                records[i] = "".join(sink.cap)
-                sink.cap = None
-            else:
-                wr.mapped(mi.names, mi.lens, mi.codes, s, reg)
-        t2 = pc()
-        if traced:
-            spans.add("io.read", i0, t0)
-            spans.add("pipeline.align_batch", t0, t1)
-            spans.add("io.write", t1, t2)
-        state["n_reads"] += len(batch)
-        return len(batch), sum(len(s.codes) for s in batch)
-
-    src = window.cycle(lambda: batches(o.batch_size))
-
-    def next_batch():
-        t0 = pc()
-        b = next(src)
-        for s in b:
-            seen.add(int(s.name[1:]))
-        return t0, b
-
     prof = None
-    if traced and dev.type == "cuda":
+    if traced and cuda:
         from torch.profiler import ProfilerActivity, profile, record_function
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
@@ -283,7 +128,7 @@ def run_cell(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool,
     t_win = time.monotonic()
     host_t0 = pc()
     ru0 = resource.getrusage(resource.RUSAGE_SELF)
-    win = window.run(iter(next_batch, None), process, seconds)
+    win = window.run(batches, process, seconds)
     ru1 = resource.getrusage(resource.RUSAGE_SELF)
     if prof is not None:
         torch.cuda.synchronize()
@@ -291,32 +136,24 @@ def run_cell(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool,
         prof.__exit__(None, None, None)
     setup_s = t_win - t_start
     host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-    dev_peak = (torch.cuda.max_memory_allocated(dev)
-                if dev.type == "cuda" else 0)
-    counters["fill_launches"] = _build.LAUNCHES["fill"] - launches0
-    new = _build.FUSED_SHAPES[shapes0:]
-    counters["fill_problems"] = sum(s[0] for s in new)
-    if orig_fill is not None:
-        extend.fill_store = orig_fill
-        _fill_counters(held, counters)
-    held.clear()
+    dev_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    m.end_window(counters)
     dev_trace = None
     if prof is not None:
         path = os.path.join(workdir, "trace.json")
         prof.export_chrome_trace(path)
         del prof
-        dev_trace = trace.read(path, host_t0, spans.d)
+        dev_trace = trace.read(path, host_t0, spans.d,
+                               program.intervals())
         os.remove(path)
     # the program's state goes before the reference runs
-    del engine, eng, src
+    del batches, process
+    m.close()
     gc.collect()
-    if dev.type == "cuda":
+    if cuda:
         torch.cuda.empty_cache()
     t_judge = time.monotonic()
-    checks, judged, failed = judge.judge(
-        cfg["score"], genome, g["name"], pool, picks, seen, records,
-        gen._rng(seed, 4), index=mi, k=cfg["index"]["k"],
-        w=cfg["index"]["w"], n_blocks=n_blocks, device=device)
+    checks, judged, failed = m.judge()
     judge_s = time.monotonic() - t_judge
     ab = spans.d["pipeline.align_batch"]
     ctx = {
@@ -334,7 +171,7 @@ def run_cell(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool,
     }
     return {"ctx": ctx, "checks": checks, "judged": judged,
             "failed": failed, "attempted": win.reads,
-            "sam_bytes": sink.nbytes, "sam_sha256": sink.sha.hexdigest()}
+            "out_bytes": sink.nbytes, "out_sha256": sink.sha.hexdigest()}
 
 
 def read_metric(name: str, ctx: dict):
@@ -370,7 +207,7 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     b = spec.benchmark()
     w, c, cfg, mix = spec.cell(b, a.workload)
-    lim = spec.limits(a.workload)
+    lim = spec.limits(a.workload, spec.mode(mix).CHECKS)
     kind = "per_layer" if a.trace else "end_to_end"
     wanted = spec.metrics_of(b, a.workload, kind)
     th = mix["threads"]
@@ -424,7 +261,7 @@ def main(argv=None) -> int:
         for k, v in ctx["rusage"].items()), file=sys.stderr)
     print(f"[bench] card: {_power_limit()}; window {win.seconds:.3f} s, "
           f"{win.batches} batches, {win.reads} reads, {win.bases} bases; "
-          f"SAM {r['sam_bytes']} bytes sha256 {r['sam_sha256'][:16]}; "
+          f"output {r['out_bytes']} bytes sha256 {r['out_sha256'][:16]}; "
           f"judged {r['judged']} reads in {ctx['judge_s']:.3f} s; "
           f"setup {ctx['setup_s']:.3f} s, index {ctx['index_build_s']:.3f} s",
           file=sys.stderr)

@@ -262,8 +262,8 @@ def main(argv=None) -> int:
     got: dict = {}
     read, run_cell = trace.read, run.run_cell
 
-    def keep_read(path, host_t0_ns, spans):
-        got["trace"] = read(path, host_t0_ns, spans)
+    def keep_read(path, host_t0_ns, spans, *program):
+        got["trace"] = read(path, host_t0_ns, spans, *program)
         if a.recorder == "on":
             got["report"] = report(path, host_t0_ns, spans, stats.read())
         return got["trace"]
@@ -295,7 +295,7 @@ def main(argv=None) -> int:
         "recorder": a.recorder, "workload": a.workload, "seed": a.seed,
         "window_mbases_per_s": w.bases / 1e6 / w.seconds,
         "batches": w.batches, "harness_idle_gaps":
-            got["trace"]["idle_gaps"] if got.get("trace") else None}
+            got["trace"]["idle_gaps_harness"] if got.get("trace") else None}
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
         with open(a.out, "w") as f:

@@ -1,6 +1,7 @@
 """The benchmark's data: BENCHMARK.json at the checkout's root, and the
 files that it names by name (configs/<config>.json, traffic/<mix>.json,
-limits/<cell>.json, metrics/<metric>.py, kernels.json, peaks.json).
+limits/<cell>.json, metrics/<metric>.py, kernels.json, peaks.json), and
+the traffic mode that a mix names by its "mode" key (modes/<mode>.py).
 
 A later change adds a cell, a mix or a metric by adding such files and
 entries; nothing here names one. Names and units are checked before
@@ -9,12 +10,14 @@ anything else runs.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import re
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+MODES = os.path.join(HERE, "modes")
 
 NAME_RE = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT_RE = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -90,7 +93,30 @@ def cell(b: dict, name: str) -> tuple[dict, dict, dict, dict]:
         os.path.join("benchmark", "traffic", w["traffic"] + ".json"))
 
 
-def limits(name: str) -> dict:
-    """The cell's limits: {check: limit}."""
-    return load_json(os.path.join("benchmark", "limits",
-                                  name + ".json"))["limits"]
+def mode(mix: dict):
+    """The module modes/<mode>.py that the mix's "mode" key names: its
+    `CHECKS` and its `Mode` (modes/__init__.py). Loaded before any
+    set-up, so that a mode with no file stops a run first."""
+    name = check_name(mix.get("mode"), "traffic mode")
+    path = os.path.join(MODES, name + ".py")
+    if not os.path.isfile(path):
+        raise SpecError(f"traffic mode {name!r} has no file {path}")
+    s = importlib.util.spec_from_file_location(
+        "benchmark_mode_" + name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(s)
+    s.loader.exec_module(mod)
+    if not hasattr(mod, "Mode") or not hasattr(mod, "CHECKS"):
+        raise SpecError(f"traffic mode {name!r}: {path} lacks Mode or "
+                        "CHECKS")
+    return mod
+
+
+def limits(name: str, checks=None) -> dict:
+    """The cell's limits: {check: limit}; with `checks`, the names that
+    the cell's mode compares, which the limits' keys have to equal."""
+    lim = load_json(os.path.join("benchmark", "limits",
+                                 name + ".json"))["limits"]
+    if checks is not None and set(lim) != set(checks):
+        raise SpecError(f"limits/{name}.json: limits {sorted(lim)} against "
+                        f"the mode's checks {sorted(checks)}")
+    return lim

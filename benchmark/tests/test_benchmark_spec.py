@@ -1,7 +1,7 @@
 """BENCHMARK.json and the files it names: every name and unit keeps the
-rules, every cell finds its configuration, mix and limits, every metric
-its reader, and each cell reports setup_s, another end-to-end metric
-and a per-layer one."""
+rules, every cell finds its configuration, mix, mode and limits (one for
+each of the mode's checks), every metric its reader, and each cell
+reports setup_s, another end-to-end metric and a per-layer one."""
 
 import importlib.util
 import json
@@ -28,9 +28,8 @@ def test_benchmark_json_and_its_files():
         assert cfg["name"] == c["name"]
     for w in b["workloads"]:
         _, c, cfg, mix = spec.cell(b, w["name"])
-        lim = spec.limits(w["name"])
-        assert set(lim) == {"missing", "malformed", "misplaced",
-                            "unmapped_hi", "seg_gap", "index_diff"}
+        lim = spec.limits(w["name"], spec.mode(mix).CHECKS)
+        assert lim
         e2e = {m["name"] for m in spec.metrics_of(b, w["name"],
                                                   "end_to_end")}
         assert "setup_s" in e2e and len(e2e) >= 2

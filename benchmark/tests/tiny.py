@@ -22,13 +22,14 @@ def cell(seed=2**31 + 7):
     return cfg, mix
 
 
-def run(tmp, seed=2**31 + 7, traced=False):
-    """One run of the tiny cell on the CPU: (checks, judged, result)."""
+def run(tmp, seed=2**31 + 7, traced=False, cfg_mix=None):
+    """One run of the tiny cell (or of `cfg_mix`, a (configuration, mix)
+    pair) on the CPU: (checks, judged, result)."""
     os.environ["MINIALIGN_SCHED_WORKERS"] = "1"
     import torch
     torch.set_num_threads(1)
     from benchmark import run as brun
-    cfg, mix = cell()
+    cfg, mix = cell() if cfg_mix is None else cfg_mix
     r = brun.run_cell(cfg, mix, seed, 0.0, traced, "cpu", str(tmp),
                       sample=(6, 2), n_blocks=4)
     return r["checks"], r["judged"], r

@@ -1,17 +1,22 @@
 """The device's side of a traced window, read from torch.profiler's
 chrome trace: busy time (the union of kernels, copies and sets), device
 time by operation and by layer (kernels.json), and the idle gaps
-attributed to what the host was doing then (the harness's spans).
+attributed to what the host was doing then: the innermost of the
+program's spans in progress (spans.idle_gaps), and where none was, the
+harness's spans.
 
-The trace's clock and the host's are tied by the `bench.window`
-annotation, which opens as the window's first clock reading is taken.
+The program's spans go onto the trace's clock by the recorder's clock
+anchors (spans.clock_line). The harness's go by those too, or, on a
+trace without two anchors, by the `bench.window` annotation, which
+opens as the window's first clock reading is taken.
 """
 
 from __future__ import annotations
 
-import bisect
 import json
 import os
+
+from . import spans as program_spans
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # innermost first: an idle gap goes to the first of these in progress
@@ -45,9 +50,11 @@ def _union(iv: list) -> list:
     return out
 
 
-def read(path: str, host_t0_ns: int, spans: dict) -> dict:
+def read(path: str, host_t0_ns: int, spans: dict,
+         program: list | None = None) -> dict:
     """Summary of a chrome trace; spans: {name: [(t0_ns, t1_ns)]} on the
-    host clock whose reading at the window's start is host_t0_ns."""
+    host clock whose reading at the window's start is host_t0_ns;
+    program: the recorder's intervals (stats.read()), or None."""
     with open(path) as f:
         ev = json.load(f)["traceEvents"]
     win = next(e for e in ev if e.get("name") == "bench.window"
@@ -72,27 +79,26 @@ def read(path: str, host_t0_ns: int, spans: dict) -> dict:
         by_layer[ly] = by_layer.get(ly, 0.0) + (b - a) * 1e-6
     busy = _union(iv)
     busy_s = sum(b - a for a, b in busy) * 1e-6
-    # host spans on the trace's clock (microseconds)
-    off = w0 - host_t0_ns / 1e3
-    sp = {k: _union((a / 1e3 + off, b / 1e3 + off) for a, b in v)
+    line = program_spans.clock_line(ev)
+    if line is None:
+        a, b = w0 - host_t0_ns / 1e3, 1e-3
+    else:
+        a, b = line
+    sp = {k: _union((a + b * t0, a + b * t1) for t0, t1 in v)
           for k, v in spans.items()}
-    starts = {k: [a for a, _ in v] for k, v in sp.items()}
-
-    def inside(k, t):
-        j = bisect.bisect_right(starts.get(k, []), t) - 1
-        return j >= 0 and t < sp[k][j][1]
-    gaps: dict = {}
-    prev = w0
-    for a, b in busy + [[w1, w1]]:
-        if a > prev:
-            mid = (prev + a) / 2
-            who = next((k for k in SPAN_ORDER if inside(k, mid)),
-                       "none_of_these")
-            gaps[who] = gaps.get(who, 0.0) + (a - prev) * 1e-6
-        prev = max(prev, b)
+    timeline = []
+    if line is not None and program:
+        timeline = program_spans.innermost(
+            [x for x in program_spans.on_trace(program, line)
+             if x[1] < w1 and x[2] > w0])
+    gaps = program_spans.idle_gaps(busy, w0, w1, timeline, sp)
+    harness_gaps = program_spans.idle_gaps(busy, w0, w1, [], sp)
     top = sorted(by_op.items(), key=lambda x: -x[1])[:10]
     return {"busy_s": busy_s, "window_s": (w1 - w0) * 1e-6,
             "by_layer": by_layer,
             "device_ops": [[k, v] for k, v in top],
-            "idle_gaps": [[k, v] for k, v in
-                          sorted(gaps.items(), key=lambda x: -x[1])[:10]]}
+            "idle_gaps": _top(gaps), "idle_gaps_harness": _top(harness_gaps)}
+
+
+def _top(gaps: dict) -> list:
+    return [[k, v] for k, v in sorted(gaps.items(), key=lambda x: -x[1])[:10]]
