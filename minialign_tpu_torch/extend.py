@@ -289,16 +289,6 @@ def host_walk(p: ScoreParams, summ: np.ndarray, W: int, bufs) -> list:
         int(mj[s]))) for s in range(len(ms))]
 
 
-def _bucket(n: int) -> int:
-    """Power-of-two length bucket, floor 512: requests are grouped by
-    bucket so that a batch's rows and trace buffers stay near the size
-    its problems need."""
-    b = 512
-    while b < n:
-        b *= 2
-    return b
-
-
 class FillEngine:
     """Runs extension requests on one device.
 
@@ -500,22 +490,21 @@ class FillEngine:
         ignored: its walk stays there."""
         sp = stats.begin("engine.submit") if stats.ON else None
         out = [None] * len(reqs)
+        # one batch a (kind, band width, raw arrays or store slices),
+        # whatever the lengths: a problem is one warp's serial chain of
+        # steps, so a launch takes as long as its longest problem and the
+        # others run beside it, where batches by length (the JAX engine's
+        # compile buckets, minialign_tpu/extend.py:863-869) would run one
+        # after another. Each problem's window is cut at its own lengths,
+        # so the results are those of any other grouping.
         groups = {}
         for i, req in enumerate(reqs):
-            kind, a, b, W = req[0], req[1], req[2], req[3]
+            kind, W = req[0], req[3]
             if kind not in ("down", "up", "duo"):
                 raise ValueError(f"FillEngine serves 'down', 'up' and "
                                  f"'duo' requests, not {kind!r}")
-            key = (kind, W, _bucket(self._spec_len(a) + band.TAIL_N + 128),
-                   _bucket(self._spec_len(b) + band.TAIL_N + 128))
-            if kind == "duo":
-                # the JAX engine's duo groups (minialign_tpu/extend.py:
-                # 863-869): the up sides' buckets from their bounds
-                rlen, qlen = req[4][3], req[4][4]
-                key += (_bucket(min(2 * qlen + CAPU_ADD, rlen)
-                                + band.TAIL_N + 128),
-                        _bucket(qlen + band.TAIL_N + 128))
-            groups.setdefault(key, []).append(i)
+            raw = isinstance(req[1], np.ndarray)
+            groups.setdefault((kind, W, raw), []).append(i)
         # launch every batch before the first harvest: the device works
         # through the queue while the host copies results back
         pending = []

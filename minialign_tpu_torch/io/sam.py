@@ -17,8 +17,8 @@ Format semantics from the reference printer (minialign.c:4734-5701):
 
 Carried from the JAX package's minialign_tpu/io/sam.py unchanged; only
 the imports differ (the JAX module reaches jax through its extend/band
-imports), and SamWriter times each read's records, their writes to
-the sink included, as one `io.format` span (stats.py).
+imports), and SamWriter and PafWriter time each read's records, their
+writes to the sink included, as one `io.format` span (stats.py).
 """
 
 from __future__ import annotations
@@ -395,6 +395,12 @@ class PafWriter:
         pass
 
     def mapped(self, ref_names, ref_lens, ref_codes, seq, reg):
+        sp = stats.begin("io.format") if stats.ON else None
+        self._mapped(ref_names, ref_lens, seq, reg)
+        if sp is not None:
+            stats.end(sp)
+
+    def _mapped(self, ref_names, ref_lens, seq, reg):
         if reg is None:
             return
         qlen = len(seq.codes)

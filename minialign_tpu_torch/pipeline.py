@@ -9,16 +9,20 @@ in lockstep batches (see extend.py docstring).
 Carried from the JAX package's minialign_tpu/pipeline.py; the imports
 differ (the JAX module reaches jax through its extend/band imports), on
 the store path a batch's round-0 seeds may come from one device pass
-(FillEngine.seed_round0, below) instead of a host call a read, and
-align_batch records its spans and counters (stats.py): `pipeline.extend`
-around each loop that sends to the extension generators (their seeding
-and chaining, and the engine's calls, are spans of their own inside it),
-`pipeline.seed` around the batch's seed pass, `pipeline.post` around the
-sequential stale-rlen pass and around the post-processing,
-`engine.submit` around the upload of the batch's sequence stores, and
-the counters `pipeline.reads`, `pipeline.seed_batched` (reads whose
-round-0 seeds came from the batch pass) and `pipeline.replays` (reads
-re-run by the stale-rlen pass).
+(FillEngine.seed_round0, below) instead of a host call a read, the
+stale-rlen pass replays the reads whose guess was wrong together in
+lockstep (a read of an all-vs-all batch has tens of extensions to
+replay), and align_batch records its spans and counters (stats.py):
+`pipeline.extend` around each loop that sends to the extension
+generators (their seeding and chaining, and the engine's calls, are
+spans of their own inside it), `pipeline.seed` around the batch's seed
+pass, `pipeline.post` around the stale-rlen pass and around the
+post-processing, `engine.submit` around the upload of the batch's
+sequence stores, and the counters `pipeline.reads`,
+`pipeline.seed_batched` (reads whose round-0 seeds came from the batch
+pass), `pipeline.replays` (reads re-run by the stale-rlen pass) and
+`pipeline.alns` (the alignments that the post-processing reports,
+summed over the batch's reads).
 """
 
 from __future__ import annotations
@@ -76,22 +80,6 @@ def _postprocess(mp: MapParams, out) -> Reg | None:
     return Reg(alns=alns, n_uniq=n_uniq)
 
 
-def _pump_single(engine, g, qid: int = -1):
-    """Drive one extension generator to completion (used for stale-rlen
-    replays; see align_batch)."""
-    sp = stats.begin("pipeline.extend", qid=qid) if stats.ON else None
-    try:
-        req = g.send(None)
-        while True:
-            out = engine.run([req])[0]
-            req = g.send(out)
-    except StopIteration as e:
-        return e.value
-    finally:
-        if sp is not None:
-            stats.end(sp)
-
-
 def align_batch(mp: MapParams, mi: MMIndex, reads: list,
                 engine: FillEngine | None = None,
                 base_qid: int = 0, tbuf: dict | None = None,
@@ -106,8 +94,8 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
     block, minialign.c:4501+6419). The reference with -t1 therefore
     couples reads SEQUENTIALLY; to keep the batched device pipeline,
     reads run speculatively (first-root test against the current ref
-    length) and a sequential post-pass replays the rare read whose
-    guess disagrees with the true stale value."""
+    length) and a post-pass replays the reads whose guess disagrees
+    with the true stale value, in lockstep, until none does."""
     engine = engine or FillEngine(mp.score)
     tb = tbuf if tbuf is not None else {"rlen": 0}
     stats.tick()
@@ -193,7 +181,7 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
     # share of the reads through its own dispatch rounds, so one
     # share's host work (seeding/chaining/bookkeeping) overlaps the
     # other's device waits — reads are independent here, and the
-    # stale-rlen chain is restored by the sequential replay pass below
+    # stale-rlen chain is restored by the replay pass below
     # exactly as for any other execution order. Only the device-store
     # path is multi-worker-safe (the pooled host staging buffers are
     # keyed by shape, not by thread).
@@ -225,48 +213,68 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
     else:
         drive(active, results)
 
-    # sequential stale-rlen pass: walk reads in order, replay any whose
-    # speculative first-root bounds test disagrees with the true value
+    # stale-rlen pass: walk reads in order and replay each whose
+    # speculative first-root bounds test disagrees with the true value.
+    # A read depends on the incoming rlen only through that test, so the
+    # reads that disagree are replayed together, in lockstep through
+    # drive(), each with the rlen that the walk handed it; the walk then
+    # runs again, since a replayed read may leave another rlen behind.
+    # The first read that disagrees gets its true value each time, so
+    # every walk settles at least one more read, and the result is the
+    # sequential replay's.
     sp = stats.begin("pipeline.post", base_qid) if stats.ON else None
-    cur = tb["rlen"]
-    replays = 0
-    for i in range(len(reads)):
-        out = results.get(i)
-        if out is None:
-            if chain_out is not None:
-                chain_out.append(None)
-            continue
-        rec = out[2]
-        if rec["first"] is not None:
-            fa, fb = rec["first"]
-            fired = fa >= cur or fb >= len(reads[i])
-            if fired != rec["fired"]:
-                g = extend_read(mp, mi, np.asarray(reads[i]),
-                                base_qid + i,
-                                qidx=i if use_store else None,
-                                tbuf={"rlen": cur, "spec": False},
-                                duo=duo, seeds0=pre.get(i))
-                replays += 1
-                out = _pump_single(engine, g, base_qid + i)
-                results[i] = out
-                rec = out[2] if out is not None else None
-        if rec is not None and rec["out_rlen"] is not None:
-            cur = rec["out_rlen"]
-        if chain_out is not None:
-            # per-read chain summary for the cross-host replay check
-            # (parallel/distributed.merge_host_outputs): enough to
-            # re-evaluate the first-root bounds test under the TRUE
-            # incoming rlen and to advance the chain without remapping
+    replayed = set()
+    while True:
+        cur = tb["rlen"]
+        redo = {}
+        for i in range(len(reads)):
+            out = results.get(i)
+            if out is None:
+                continue
+            rec = out[2]
+            if rec["first"] is not None:
+                fa, fb = rec["first"]
+                if (fa >= cur or fb >= len(reads[i])) != rec["fired"]:
+                    redo[i] = cur
+            if rec["out_rlen"] is not None:
+                cur = rec["out_rlen"]
+        if not redo:
+            break
+        replayed.update(redo)
+        act = {}
+        spx = stats.begin("pipeline.extend", base_qid) if stats.ON else None
+        for i, rlen in redo.items():
+            g = extend_read(mp, mi, np.asarray(reads[i]), base_qid + i,
+                            qidx=i if use_store else None,
+                            tbuf={"rlen": rlen, "spec": False}, duo=duo,
+                            seeds0=pre.get(i))
+            try:
+                act[i] = (g, g.send(None))
+            except StopIteration as e:
+                results[i] = e.value
+        if spx is not None:
+            stats.end(spx)
+        drive(act, results)
+    tb["rlen"] = cur
+    if chain_out is not None:
+        # per-read chain summary for the cross-host replay check
+        # (parallel/distributed.merge_host_outputs): enough to
+        # re-evaluate the first-root bounds test under the TRUE
+        # incoming rlen and to advance the chain without remapping
+        for i in range(len(reads)):
+            out = results.get(i)
+            rec = out[2] if out is not None else None
             chain_out.append(None if rec is None else {
                 "first": rec["first"], "fired": rec["fired"],
                 "out_rlen": rec["out_rlen"], "qlen": len(reads[i])})
-    tb["rlen"] = cur
     if sp is not None:
         stats.end(sp)
-        stats.add("pipeline.replays", replays)
+        stats.add("pipeline.replays", len(replayed))
 
     sp = stats.begin("pipeline.post", base_qid) if stats.ON else None
     regs = [_postprocess(mp, results.get(i)) for i in range(len(reads))]
     if sp is not None:
         stats.end(sp)
+        stats.add("pipeline.alns", sum(len(r.alns) for r in regs
+                                       if r is not None))
     return regs

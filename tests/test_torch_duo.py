@@ -453,11 +453,7 @@ def test_one_summary_read_back_per_duo_batch(engine, reads, genome,
     monkeypatch.setattr(extend, "fill_store", fill_logged)
     monkeypatch.setattr(extend, "_host", host_logged)
     reqs = _requests(genome, reads, Ws=(32, 32, 32))[:2]
-    keys = {r[3:4] + (extend._bucket(engine._spec_len(r[1]) + 224),
-                      extend._bucket(engine._spec_len(r[2]) + 224),
-                      extend._bucket(min(2 * r[4][4] + CAPU_ADD, r[4][3])
-                                     + 224),
-                      extend._bucket(r[4][4] + 224)) for r in reqs}
+    keys = {r[3] for r in reqs}             # a batch a band width
     engine.run(reqs)
     n = len(keys)
     fills = [e for e in log if e[0] == "fill"]
@@ -467,3 +463,32 @@ def test_one_summary_read_back_per_duo_batch(engine, reads, genome,
     reads_ = log[first_read:]
     assert len(reads_) == 2 * n and all(e[0] == "read" for e in reads_)
     assert all(e[1][0] == len(dtrace.SUMMARY_ROWS) + 3 for e in reads_[::2])
+
+
+def test_one_launch_batch_a_band_width_whatever_the_lengths(engine, reads,
+                                                            genome,
+                                                            monkeypatch):
+    """A round's duo requests of one band width go out as one batch, the
+    windows' lengths as they fall (here from empty to the whole read of
+    ~1.2 kb, which the former power-of-two buckets with their 224-base
+    margin put into batches of 512, 1,024 and 2,048): a launch takes as long as its longest
+    problem, so a batch a length would only queue them one after
+    another. The results are those of each request run alone."""
+    batches = []
+    duo_batch = extend.FillEngine._duo_batch
+
+    def counted(self, reqs, W):
+        batches.append((W, len(reqs)))
+        return duo_batch(self, reqs, W)
+    monkeypatch.setattr(extend.FillEngine, "_duo_batch", counted)
+    reqs = _requests(genome, reads, Ws=(64, 64, 64))
+    lens = {engine._spec_len(r[2]) for r in reqs}
+    assert min(lens) < 512 - 224 and 1024 - 224 < max(lens)
+    got = engine.run(reqs)
+    assert sorted(batches) == [(32, 1), (64, len(reqs) - 1)]
+    for r, g in zip(reqs, got):
+        alone = engine.run([r])[0]
+        assert g[:6] == alone[:6]
+        assert (g[6] is None) == (alone[6] is None)
+        if g[6] is not None:
+            _same_trace(g[6], alone[6])

@@ -128,3 +128,97 @@ def test_stale_rlen_tbuf_matches_jax(index, tindex, genome, engine):
     _same(MapParams(), index, tindex, reads, engine, tbuf=tb,
           tbuf_jax=tbj)
     assert tb == tbj and tb["rlen"] == len(genome)
+
+
+def test_stale_rlen_replays_run_in_lockstep_and_match_jax(monkeypatch):
+    """Reads alternate between a 3 kb and a 9 kb reference, each 9 kb
+    read at an offset past 3 kb: its speculative first-root test (against
+    its own reference's length) disagrees with the true one (the previous
+    read's), so three reads replay. They replay together, one request
+    each in the same engine rounds, where a read at a time before took a
+    round of its own a request; the Regs and the rlen left behind equal
+    the JAX package's sequential replays."""
+    from minialign_tpu_torch import pipeline
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 4, 3000).astype(np.int8)
+    b = rng.integers(0, 4, 9000).astype(np.int8)
+    mi = build_index(IndexParams(), ["ra", "rb"], [a, b])
+    tmi = tbuild_index(tparams.IndexParams(), ["ra", "rb"], [a, b])
+    reads = [a[500:900].copy(), b[5000:5400].copy(), a[100:500].copy(),
+             b[6000:6400].copy(), a[1500:1900].copy(), b[7000:7400].copy()]
+    replay_reqs = []
+    orig = pipeline.extend_read
+
+    def tagged(g):
+        try:
+            req = g.send(None)
+            while True:
+                replay_reqs.append(req)
+                req = g.send((yield req))
+        except StopIteration as e:
+            return e.value
+
+    def extend_read(*args, tbuf=None, **kw):
+        g = orig(*args, tbuf=tbuf, **kw)
+        replay = args[3] > 0 and not tbuf["spec"]
+        return tagged(g) if g is not None and replay else g
+    monkeypatch.setattr(pipeline, "extend_read", extend_read)
+    eng = FillEngine(tparams.MapParams().score, batch=8, device="cpu")
+    per_round = []
+    run = eng.run
+
+    def counted(reqs):
+        per_round.append(sum(any(r is x for x in replay_reqs)
+                             for r in reqs))
+        return run(reqs)
+    eng.run = counted
+    tb, tbj = {"rlen": 0}, {"rlen": 0}
+    _same(MapParams(), mi, tmi, reads, eng, tbuf=tb, tbuf_jax=tbj)
+    assert tb == tbj
+    assert max(per_round) == 3
+
+
+def test_a_read_replayed_twice_counts_once(monkeypatch):
+    """Read 1's speculative guess is wrong, and so is read 2's, against
+    read 1's unreplayed rlen: both replay together, read 1's replay hands
+    read 2 another rlen, and read 2 replays again. The walk ends at the
+    sequential chain's rlen, and `pipeline.replays` counts the two reads
+    that were re-run, once each."""
+    from minialign_tpu_torch import pipeline, stats
+    first = {0: 0, 1: 50, 2: 500}          # first-root test: fa >= rlen
+    spec = {1: True, 2: False}             # the speculative guesses
+    out_rlen = {0: {True: 100, False: 100}, 1: {True: 10, False: 1000},
+                2: {True: 7, False: 3}}
+    runs = []
+
+    def extend_read(mp, mi, codes, qid, qidx=None, tbuf=None, duo=None,
+                    seeds0=None):
+        fired = spec[qid] if tbuf["spec"] else first[qid] >= tbuf["rlen"]
+        if not tbuf["spec"] and qid:
+            runs.append(qid)
+        rec = {"first": (first[qid], 0), "fired": fired,
+               "out_rlen": out_rlen[qid][fired]}
+
+        def g():
+            return None, None, rec
+            yield
+        return g()
+    monkeypatch.setattr(pipeline, "extend_read", extend_read)
+    monkeypatch.setattr(pipeline, "_postprocess", lambda mp, out: None)
+    reads = [np.zeros(20, np.int8)] * 3
+    tb = {"rlen": 0}
+    stats.stop()
+    stats.reset()
+    stats.start()
+    try:
+        pipeline.align_batch(tparams.MapParams(), None, reads,
+                             engine=object(), tbuf=tb)
+        counters = stats.read()["counters"]
+    finally:
+        stats.stop()
+        stats.reset()
+    assert runs == [1, 2, 2]
+    # the sequential chain: 0 -> 100, read 1 not fired -> 1000, read 2
+    # not fired -> 3
+    assert tb["rlen"] == 3
+    assert counters["pipeline.replays"] == 2
