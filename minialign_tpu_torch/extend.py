@@ -1,12 +1,15 @@
 """Batched extension: the per-read extension generators and the device
 FillEngine.
 
-Carries the host half of minialign_tpu/extend.py unchanged (_key, Seg,
-Aln, split_segments, Bin, rle_paths_py, _SearchState, _load_next,
-extend_read and helpers); only the imports differ, and extend_read
-records its `pipeline.seed` and `pipeline.chain` spans (stats.py). See
-that module's docstring for the scheduling design and the reference
-citations.
+Carries the host half of minialign_tpu/extend.py (_key, Seg, Aln,
+split_segments, Bin, rle_paths_py, _SearchState, _load_next, extend_read
+and helpers); the imports differ, extend_read records its
+`pipeline.seed` and `pipeline.chain` spans (stats.py), and its chain
+loop's body is a generator of its own (_extend_chain) that plan_lanes
+also runs: a read's chains on different target sequences as lanes that
+pipeline.align_batch runs ahead of the sequential loop, in the same
+engine rounds. See the JAX module's docstring for the scheduling design
+and the reference citations.
 
 FillEngine is new: it runs the same requests through the port's
 kernels (the fill reading the sequence stores -> traceback walk, dp/),
@@ -754,9 +757,247 @@ def seeds_read(mp: MapParams, mi: MMIndex, qlen: int) -> bool:
     return not (qlen < mi.k or qlen * mp.score.mcoef < mp.min_score)
 
 
+@dataclasses.dataclass
+class _Query:
+    """What a chain's extension needs of its read."""
+    qid: int
+    qidx: int | None     # the read in the engine's query store, or None
+    qlen: int
+    qrc: dict            # strand -> codes: 0 forward, 1 reverse complement
+    duo: bool
+
+
+@dataclasses.dataclass
+class _ReadState:
+    """A read's extension state across its chains (mm_align_seq's bins,
+    position hash and root countdown, minialign.c:4427-4450)."""
+    # res: [accumulated score, Bin] a root; slots: the self->bin array;
+    # pos_hash: _key -> [eid, nid]
+    res: list = dataclasses.field(default_factory=list)
+    slots: list = dataclasses.field(default_factory=list)
+    pos_hash: dict = dataclasses.field(default_factory=dict)
+    crem: int = MM_CREM
+
+
+def _extend_chain(mp: MapParams, mi: MMIndex, q: _Query, seeds, ch,
+                  S: _ReadState, tbuf: dict, rec: dict):
+    """Generator: one chain of extend_read's loop over the read's state S,
+    from its root load to finishing its root; yields and receives as
+    extend_read does. The root bounds test reads tbuf["rlen"], the ref
+    length of the root loaded before it, or for the read's first root
+    (rec["first"] None) the rule that tbuf["spec"] picks; the root sets
+    tbuf["rlen"] and rec."""
+    qlen, qid, qidx, qrc = q.qlen, q.qid, q.qidx, q.qrc
+    res, slots, pos_hash = S.res, S.slots, S.pos_hash
+    tglen = mp.glen
+    # ---- load root (minialign.c:3839-3885)
+    rsid = ch.root_sid
+    x, y = coords_to_xy(seeds[rsid, 0], seeds[rsid, 2])
+    rid = int(seeds[rsid, 1])
+    rcodes = np.asarray(mi.codes[rid], np.int8)
+    rrev = ref_revcomp(mi, rid)
+    rlen = int(mi.lens[rid])
+    circ = bool(mi.circular[rid])
+    apos = x
+    bpos = y + (qlen if y < 0 else 0)
+    if rec["first"] is None:
+        rec["first"] = (apos, bpos)
+        fired = (apos >= (rlen if tbuf["spec"] else tbuf["rlen"])
+                 or bpos >= qlen)
+        rec["fired"] = fired
+    else:
+        fired = apos >= tbuf["rlen"] or bpos >= qlen
+    if fired:
+        apos -= min(apos, mi.k)
+        bpos -= min(bpos, mi.k)
+    tbuf["rlen"] = rlen
+    rec["out_rlen"] = rlen
+    st = _SearchState(cp=(apos, bpos), tp=(apos, bpos),
+                      rev=1 if y < 0 else 0, prem=ch.plen, sid=rsid)
+    eid = len(res)
+    bin_ = Bin()
+    res.append([0, bin_])
+    slots_mark = len(slots)
+
+    first = True
+    while st.srem > 0 and st.prem > 0:
+        if not first:
+            if not _load_next(st, seeds, tglen, rid, qlen,
+                              rlen=rlen, kk=mi.k):
+                break
+        first = False
+        W = WIDTHS[st.narrow]
+        qdir = qrc[st.rev]
+
+        # ---- downward extension (+ fused speculative up:
+        # one device round per trial when the store path and
+        # non-circular geometry allow — mm_extend_core's
+        # down/up pair, minialign.c:4075-4147)
+        cap = _slice_cap(qlen - st.cp[1], W)
+        use_duo = (q.duo and qidx is not None and not circ
+                   and st.cp[0] >= 0 and st.cp[1] >= 0)
+        if use_duo:
+            a = ("ref", rid, 0, st.cp[0], cap, 0)
+            b = ("q", qidx, st.rev, st.cp[1])
+            meta = (rid, st.rev, qidx, rlen, qlen,
+                    st.cp[0], st.cp[1])
+            sc, mi_, mj_, usc, umi, umj, tr = yield (
+                "duo", a, b, W, meta)
+        else:
+            if qidx is not None:
+                a = ("ref", rid, 0, st.cp[0], cap,
+                     rlen if circ else 0)
+                b = ("q", qidx, st.rev, st.cp[1])
+            else:
+                a = _slice_a(rcodes, st.cp[0], qlen - st.cp[1],
+                             W, circ)
+                b = qdir[st.cp[1]:]
+            sc, mi_, mj_, _ = yield ("down", a, b, W)
+        if sc == 0:
+            continue
+        ae, be = st.cp[0] + mi_, st.cp[1] + mj_
+        if circ and ae > rlen:
+            # gaba reports the max within the re-fed section;
+            # fold the unwrapped end back (pos in (0, rlen])
+            ae = ((ae - 1) % rlen) + 1
+        # test_dup (minialign.c:3953-3994), clip to [1, len]
+        st.tp = (min(max(ae, 1), rlen), min(max(be, 1), qlen))
+        k = _poskey(ae, be, rid, qid)
+        dup = k in pos_hash
+        pos_hash[k] = [eid, -1]
+        if dup:
+            # the fused path's speculative up result is simply
+            # discarded — byte-neutral vs the two-step skip
+            st.narrow = min(st.narrow + 1, 2)
+            continue
+
+        if not use_duo:
+            # ---- upward extension on reversed sequences
+            W0 = WIDTHS[0]
+            capu = _slice_cap(st.tp[1], W0)
+            if qidx is not None:
+                au = ("ref", rid, 1, rlen - st.tp[0], capu,
+                      rlen if circ else 0)
+                # revcomp(qdir) is just the OTHER strand copy
+                bu = ("q", qidx, 1 - st.rev, qlen - st.tp[1])
+            else:
+                au = _slice_a(rrev, rlen - st.tp[0], st.tp[1],
+                              W0, circ)
+                bu = revcomp_codes(qdir)[qlen - st.tp[1]:]
+            usc, umi, umj, tr = yield ("up", au, bu, W0)
+        if usc < mp.min_score or tr is None:
+            continue
+
+        ae, be = st.tp
+        as0_u, bs0 = ae - umi, be - umj
+        segs = split_segments(as0_u, bs0, tr.path_rev, rlen,
+                              ops=list(tr.ops_rev) or None) \
+            if (circ and as0_u < 0) else None
+        as0 = segs[0].as0 if segs else as0_u
+        aln = Aln(rid=rid, rev=st.rev, as0=as0, ae=ae,
+                  bs0=bs0, be=be, score=usc, path=tr.path_rev,
+                  identity=tr.identity, dcnt=tr.dcnt,
+                  agcnt=tr.agcnt, bgcnt=tr.bgcnt, segs=segs,
+                  upath=tr.path)
+
+        # ---- record (minialign.c:4018-4067)
+        st.cp = (as0, bs0)
+        st.prem -= aln.plen
+        st.pacc = aln.plen
+        hk = _poskey(as0, bs0, rid, qid)
+        tk = _poskey(ae, be, rid, qid)
+        hent = pos_hash.get(hk)
+        new = hent is None or hent[1] == -1 \
+            or hent[1] >= len(slots)        # stale after rollback
+        if new:
+            nid = len(slots)
+            slots.append(aln)
+            bin_.slot_idx.append(nid)
+        else:
+            nid = hent[1]
+        ovl = ((max(bin_.lb, bs0) - min(bin_.ub, be)
+                - bs0 + be) & 0xFFFFFFFF)
+        res[eid][0] += aln.score + int((ovl * 2) * aln.identity)
+        bin_.n_aln += 1 if new else 0
+        bin_.plen += aln.plen
+        bin_.lb = min(bin_.lb, bs0)
+        bin_.ub = max(bin_.ub, be)
+        if (not new) and slots[nid].score > aln.score:
+            pos_hash[tk] = [eid, -1]
+        else:
+            if not new:
+                slots[nid] = aln
+            pos_hash[hk] = [eid, nid]
+            pos_hash[tk] = [eid, nid]
+        st.srem, st.narrow = MM_SREM, 0
+        if (not new) or st.prem <= 0:
+            break
+
+    # ---- finish root (minialign.c:3795-3811)
+    if bin_.n_aln == 0 or res[eid][0] < mp.min_score:
+        res.pop()
+        del slots[slots_mark:]
+        S.crem -= 1
+    else:
+        S.crem = MM_CREM if S.crem != 0 else 0
+
+
+def _passes(mp: MapParams, ch) -> bool:
+    """Whether a chain is long enough to extend; chains come longest
+    first, so the loop stops at the first that is not."""
+    return ch.plen * mp.score.mcoef >= 2.0 * mp.min_score
+
+
+def plan_lanes(mp: MapParams, mi: MMIndex, q: _Query, seeds, chains,
+               S: _ReadState, tbuf: dict, rec: dict) -> list:
+    """The chains of a round as lanes, one a target sequence: generators
+    that each run their target's chains, in chain order, through
+    _extend_chain over a private copy of S, the read's state as the round
+    begins. A lane makes the requests that the sequential loop makes for
+    those chains wherever that loop reads nothing of another target's
+    chains: the position hash's keys carry the target, and each root's
+    bounds test is given the ref length that the sequential order hands
+    it (the first chain tbuf and rec as they stand, every later one the
+    length of the chain before it). Where a chain does read another
+    target's state (a hash collision across targets, a stale slot after a
+    rollback), a lane asks for what the sequential loop does not.
+
+    [] where the chains that pass the length cut fall on fewer than two
+    targets, or the requests would be raw code arrays (no query store)."""
+    if q.qidx is None:
+        return []
+    todo: dict = {}
+    prev = None
+    for ch in chains:
+        if not _passes(mp, ch):
+            break
+        rid = int(seeds[ch.root_sid, 1])
+        if prev is None:
+            tb, rc = dict(tbuf), dict(rec)
+        else:
+            # a later root: not the read's first, so its test reads the
+            # length of the root loaded before it
+            tb = {"rlen": int(mi.lens[prev]), "spec": False}
+            rc = {"first": (), "fired": False, "out_rlen": None}
+        todo.setdefault(rid, []).append((ch, tb, rc))
+        prev = rid
+    if len(todo) < 2:
+        return []
+    return [_lane(mp, mi, q, seeds, chs, S) for chs in todo.values()]
+
+
+def _lane(mp, mi, q, seeds, chs, S0: _ReadState):
+    S = _ReadState(list(S0.res), list(S0.slots), dict(S0.pos_hash), S0.crem)
+    for ch, tb, rc in chs:
+        yield from _extend_chain(mp, mi, q, seeds, ch, S, tb, rc)
+        if S.crem == 0:
+            return
+
+
 def extend_read(mp: MapParams, mi: MMIndex, qcodes: np.ndarray, qid: int,
                 qidx: int | None = None, tbuf: dict | None = None,
-                duo: bool = False, seeds0: tuple | None = None):
+                duo: bool = False, seeds0: tuple | None = None,
+                lanes: list | None = None):
     """Generator: yields ('down'|'up', a, b, W) requests, receives
     (score, mi, mj, trace) via .send(). Returns (res, slots, rec) where
     res is a list of [accumulated_score, Bin] and slots the global
@@ -779,8 +1020,11 @@ def extend_read(mp: MapParams, mi: MMIndex, qcodes: np.ndarray, qid: int,
     the caller replays the read if the guess disagrees with the true
     sequential value (see pipeline.align_batch). rec reports what this
     read did: its first root's raw position and fired flag, and the
-    rlen it leaves behind."""
-    score_p = mp.score
+    rlen it leaves behind.
+
+    lanes, when a list, receives each round's lanes (plan_lanes) after
+    the round's chaining, before the round's first request, for the
+    caller to run ahead of this generator."""
     qlen = len(qcodes)
     rec = {"first": None, "fired": False, "out_rlen": None}
     if tbuf is None:
@@ -789,16 +1033,11 @@ def extend_read(mp: MapParams, mi: MMIndex, qcodes: np.ndarray, qid: int,
         return None
 
     qf = np.ascontiguousarray(np.asarray(qcodes, np.int8))
-    qr = revcomp_codes(qf)
-    qrc = {0: qf, 1: qr}
+    q = _Query(qid, qidx, qlen, {0: qf, 1: revcomp_codes(qf)}, duo)
     twlen = mp.wlen              # _ud(wlen, wlen) == wlen
-    tglen = mp.glen
 
     st_seed = None
-    res = []                     # [accumulated_score, Bin]
-    slots = []                   # global aln slots (self->bin array)
-    pos_hash = {}                # _key -> [eid, nid]
-    crem = MM_CREM
+    S = _ReadState()
 
     for rnd in range(len(mi.occ)):
         sp = stats.begin("pipeline.seed", qid=qid) if stats.ON else None
@@ -817,166 +1056,18 @@ def extend_read(mp: MapParams, mi: MMIndex, qcodes: np.ndarray, qid: int,
             stats.end(sp)
         if not chains:
             continue
+        if lanes is not None:
+            lanes.extend(plan_lanes(mp, mi, q, seeds, chains, S, tbuf, rec))
 
         for ch in chains:
-            if ch.plen * score_p.mcoef < 2.0 * mp.min_score:
+            if not _passes(mp, ch):
                 break
-            # ---- load root (minialign.c:3839-3885)
-            rsid = ch.root_sid
-            x, y = coords_to_xy(seeds[rsid, 0], seeds[rsid, 2])
-            rid = int(seeds[rsid, 1])
-            rcodes = np.asarray(mi.codes[rid], np.int8)
-            rrev = ref_revcomp(mi, rid)
-            rlen = int(mi.lens[rid])
-            circ = bool(mi.circular[rid])
-            apos = x
-            bpos = y + (qlen if y < 0 else 0)
-            if rec["first"] is None:
-                rec["first"] = (apos, bpos)
-                fired = (apos >= (rlen if tbuf["spec"] else tbuf["rlen"])
-                         or bpos >= qlen)
-                rec["fired"] = fired
-            else:
-                fired = apos >= tbuf["rlen"] or bpos >= qlen
-            if fired:
-                apos -= min(apos, mi.k)
-                bpos -= min(bpos, mi.k)
-            tbuf["rlen"] = rlen
-            rec["out_rlen"] = rlen
-            st = _SearchState(cp=(apos, bpos), tp=(apos, bpos),
-                              rev=1 if y < 0 else 0, prem=ch.plen,
-                              sid=rsid)
-            eid = len(res)
-            bin_ = Bin()
-            res.append([0, bin_])
-            slots_mark = len(slots)
-
-            first = True
-            while st.srem > 0 and st.prem > 0:
-                if not first:
-                    if not _load_next(st, seeds, tglen, rid, qlen,
-                                      rlen=rlen, kk=mi.k):
-                        break
-                first = False
-                W = WIDTHS[st.narrow]
-                qdir = qrc[st.rev]
-
-                # ---- downward extension (+ fused speculative up:
-                # one device round per trial when the store path and
-                # non-circular geometry allow — mm_extend_core's
-                # down/up pair, minialign.c:4075-4147)
-                cap = _slice_cap(qlen - st.cp[1], W)
-                use_duo = (duo and qidx is not None and not circ
-                           and st.cp[0] >= 0 and st.cp[1] >= 0)
-                if use_duo:
-                    a = ("ref", rid, 0, st.cp[0], cap, 0)
-                    b = ("q", qidx, st.rev, st.cp[1])
-                    meta = (rid, st.rev, qidx, rlen, qlen,
-                            st.cp[0], st.cp[1])
-                    sc, mi_, mj_, usc, umi, umj, tr = yield (
-                        "duo", a, b, W, meta)
-                else:
-                    if qidx is not None:
-                        a = ("ref", rid, 0, st.cp[0], cap,
-                             rlen if circ else 0)
-                        b = ("q", qidx, st.rev, st.cp[1])
-                    else:
-                        a = _slice_a(rcodes, st.cp[0], qlen - st.cp[1],
-                                     W, circ)
-                        b = qdir[st.cp[1]:]
-                    sc, mi_, mj_, _ = yield ("down", a, b, W)
-                if sc == 0:
-                    continue
-                ae, be = st.cp[0] + mi_, st.cp[1] + mj_
-                if circ and ae > rlen:
-                    # gaba reports the max within the re-fed section;
-                    # fold the unwrapped end back (pos in (0, rlen])
-                    ae = ((ae - 1) % rlen) + 1
-                # test_dup (minialign.c:3953-3994), clip to [1, len]
-                st.tp = (min(max(ae, 1), rlen), min(max(be, 1), qlen))
-                k = _poskey(ae, be, rid, qid)
-                dup = k in pos_hash
-                pos_hash[k] = [eid, -1]
-                if dup:
-                    # the fused path's speculative up result is simply
-                    # discarded — byte-neutral vs the two-step skip
-                    st.narrow = min(st.narrow + 1, 2)
-                    continue
-
-                if not use_duo:
-                    # ---- upward extension on reversed sequences
-                    W0 = WIDTHS[0]
-                    capu = _slice_cap(st.tp[1], W0)
-                    if qidx is not None:
-                        au = ("ref", rid, 1, rlen - st.tp[0], capu,
-                              rlen if circ else 0)
-                        # revcomp(qdir) is just the OTHER strand copy
-                        bu = ("q", qidx, 1 - st.rev, qlen - st.tp[1])
-                    else:
-                        au = _slice_a(rrev, rlen - st.tp[0], st.tp[1],
-                                      W0, circ)
-                        bu = revcomp_codes(qdir)[qlen - st.tp[1]:]
-                    usc, umi, umj, tr = yield ("up", au, bu, W0)
-                if usc < mp.min_score or tr is None:
-                    continue
-
-                ae, be = st.tp
-                as0_u, bs0 = ae - umi, be - umj
-                segs = split_segments(as0_u, bs0, tr.path_rev, rlen,
-                                      ops=list(tr.ops_rev) or None) \
-                    if (circ and as0_u < 0) else None
-                as0 = segs[0].as0 if segs else as0_u
-                aln = Aln(rid=rid, rev=st.rev, as0=as0, ae=ae,
-                          bs0=bs0, be=be, score=usc, path=tr.path_rev,
-                          identity=tr.identity, dcnt=tr.dcnt,
-                          agcnt=tr.agcnt, bgcnt=tr.bgcnt, segs=segs,
-                          upath=tr.path)
-
-                # ---- record (minialign.c:4018-4067)
-                st.cp = (as0, bs0)
-                st.prem -= aln.plen
-                st.pacc = aln.plen
-                hk = _poskey(as0, bs0, rid, qid)
-                tk = _poskey(ae, be, rid, qid)
-                hent = pos_hash.get(hk)
-                new = hent is None or hent[1] == -1 \
-                    or hent[1] >= len(slots)        # stale after rollback
-                if new:
-                    nid = len(slots)
-                    slots.append(aln)
-                    bin_.slot_idx.append(nid)
-                else:
-                    nid = hent[1]
-                ovl = ((max(bin_.lb, bs0) - min(bin_.ub, be)
-                        - bs0 + be) & 0xFFFFFFFF)
-                res[eid][0] += aln.score + int((ovl * 2) * aln.identity)
-                bin_.n_aln += 1 if new else 0
-                bin_.plen += aln.plen
-                bin_.lb = min(bin_.lb, bs0)
-                bin_.ub = max(bin_.ub, be)
-                if (not new) and slots[nid].score > aln.score:
-                    pos_hash[tk] = [eid, -1]
-                else:
-                    if not new:
-                        slots[nid] = aln
-                    pos_hash[hk] = [eid, nid]
-                    pos_hash[tk] = [eid, nid]
-                st.srem, st.narrow = MM_SREM, 0
-                if (not new) or st.prem <= 0:
-                    break
-
-            # ---- finish root (minialign.c:3795-3811)
-            if bin_.n_aln == 0 or res[eid][0] < mp.min_score:
-                res.pop()
-                del slots[slots_mark:]
-                crem -= 1
-            else:
-                crem = MM_CREM if crem != 0 else 0
-            if crem == 0:
+            yield from _extend_chain(mp, mi, q, seeds, ch, S, tbuf, rec)
+            if S.crem == 0:
                 break
-        if res:
+        if S.res:
             break
 
-    if not res:
+    if not S.res:
         return None, None, rec
-    return res, slots, rec
+    return S.res, S.slots, rec

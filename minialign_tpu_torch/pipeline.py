@@ -12,7 +12,11 @@ the store path a batch's round-0 seeds may come from one device pass
 (FillEngine.seed_round0, below) instead of a host call a read, the
 stale-rlen pass replays the reads whose guess was wrong together in
 lockstep (a read of an all-vs-all batch has tens of extensions to
-replay), and align_batch records its spans and counters (stats.py):
+replay), a read whose chains fall on two or more target sequences runs
+them as lanes (extend.plan_lanes: one a target, all in the same engine
+rounds) whose results answer its sequential pass and its replays from a
+memo kept until the batch's stale-rlen pass ends (_serve), and
+align_batch records its spans and counters (stats.py):
 `pipeline.extend` around each loop that sends to the extension
 generators (their seeding and chaining, and the engine's calls, are
 spans of their own inside it), `pipeline.seed` around the batch's seed
@@ -20,9 +24,13 @@ pass, `pipeline.post` around the stale-rlen pass and around the
 post-processing, `engine.submit` around the upload of the batch's
 sequence stores, and the counters `pipeline.reads`,
 `pipeline.seed_batched` (reads whose round-0 seeds came from the batch
-pass), `pipeline.replays` (reads re-run by the stale-rlen pass) and
+pass), `pipeline.replays` (reads re-run by the stale-rlen pass),
 `pipeline.alns` (the alignments that the post-processing reports,
-summed over the batch's reads).
+summed over the batch's reads), `pipeline.lane_reads` (reads run as
+lanes), `pipeline.ext_reqs` (the requests that the reads' passes made,
+replays included), `pipeline.lane_hits` (of those, the ones answered
+from the memo) and `pipeline.lane_unused` (lane results that no pass
+read).
 """
 
 from __future__ import annotations
@@ -78,6 +86,82 @@ def _postprocess(mp: MapParams, out) -> Reg | None:
     if n_uniq == 0:
         n_uniq = len(alns)
     return Reg(alns=alns, n_uniq=n_uniq)
+
+
+class _Lanes:
+    """A read's lanes (extend.plan_lanes) and what they and its passes
+    asked: the memo maps each request, from the read's first lane on, to
+    [its result, whether a lane made it, whether a pass read it]. It
+    lives until the batch's stale-rlen pass ends, so a replay is answered
+    from it too; its results are the engine's own objects, which the
+    Alns built from them share."""
+
+    __slots__ = ("todo", "memo", "reqs", "hits")
+
+    def __init__(self):
+        self.todo: list = []        # lanes planned and not yet run
+        self.memo: dict | None = None
+        self.reqs = 0               # requests the passes made
+        self.hits = 0               # of those, answered from the memo
+
+    def unused(self) -> int:
+        """Lane results that no pass read."""
+        return 0 if self.memo is None else sum(
+            1 for _, by_lane, read in self.memo.values()
+            if by_lane and not read)
+
+
+def _run_lanes(ln: _Lanes):
+    """Runs the lanes in ln.todo to their end, one request a lane an
+    engine round, keeping each result in the memo; a request that the
+    memo holds already is answered at once."""
+    memo = ln.memo = {} if ln.memo is None else ln.memo
+    run = [(lane, None) for lane in ln.todo]
+    del ln.todo[:]
+    while run:
+        asked = []
+        for lane, out in run:
+            try:
+                req = lane.send(out)
+                while req in memo:
+                    req = lane.send(memo[req][0])
+            except StopIteration:
+                continue
+            asked.append((lane, req))
+        if not asked:
+            return
+        outs = yield [req for _, req in asked]
+        for (_, req), out in zip(asked, outs):
+            memo.setdefault(req, [out, True, False])
+        run = [(lane, out) for (lane, _), out in zip(asked, outs)]
+
+
+def _serve(g, ln: _Lanes):
+    """One pass of a read (g, an extend_read generator) as the batch's
+    driver takes it: yields the list of requests that the read puts in
+    an engine round, receives their results as a list, returns g's value.
+    Before each of g's requests, the lanes that g has planned run to their
+    end; then a request the memo holds is answered at once, on the host,
+    and only the others go to the engine. g decides every request from
+    the answers, so the result is its sequential one."""
+    try:
+        req = next(g)
+        while True:
+            if ln.todo:
+                yield from _run_lanes(ln)
+            ln.reqs += 1
+            hit = None if ln.memo is None else ln.memo.get(req)
+            if hit is not None:
+                ln.hits += 1
+                hit[2] = True
+                out = hit[0]
+            else:
+                out, = yield [req]
+                if ln.memo is not None:
+                    ln.memo[req] = [out, False, True]
+            req = g.send(out)
+    except StopIteration as e:
+        return e.value
 
 
 def align_batch(mp: MapParams, mi: MMIndex, reads: list,
@@ -138,6 +222,7 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
         stats.add("pipeline.seed_batched", len(pre))
     results = {}
     active = {}
+    lanes = [_Lanes() for _ in reads]
     sp = stats.begin("pipeline.extend", base_qid) if stats.ON else None
     for i, codes in enumerate(reads):
         # the batch's first read sees a known stale rlen (exact); the
@@ -145,13 +230,13 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
         tbi = {"rlen": tb["rlen"], "spec": i != 0}
         g = extend_read(mp, mi, np.asarray(codes), base_qid + i,
                         qidx=i if use_store else None, tbuf=tbi,
-                        duo=duo, seeds0=pre.get(i))
+                        duo=duo, seeds0=pre.get(i), lanes=lanes[i].todo)
         if g is None:
             results[i] = None
             continue
+        t = _serve(g, lanes[i])
         try:
-            req = g.send(None)
-            active[i] = (g, req)
+            active[i] = (t, t.send(None))
         except StopIteration as e:
             results[i] = e.value
     if sp is not None:
@@ -162,16 +247,17 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
             sp = stats.begin("pipeline.extend", base_qid) if stats.ON \
                 else None
             idxs = list(act.keys())
-            reqs = [act[i][1] for i in idxs]
+            reqs = [r for i in idxs for r in act[i][1]]
             outs = engine.run(reqs)
             nxt = {}
-            for i, out in zip(idxs, outs):
-                g = act[i][0]
+            k = 0
+            for i in idxs:
+                t, asked = act[i]
                 try:
-                    req = g.send(out)
-                    nxt[i] = (g, req)
+                    nxt[i] = (t, t.send(outs[k:k + len(asked)]))
                 except StopIteration as e:
                     res[i] = e.value
+                k += len(asked)
             act.clear()
             act.update(nxt)
             if sp is not None:
@@ -248,8 +334,9 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
                             qidx=i if use_store else None,
                             tbuf={"rlen": rlen, "spec": False}, duo=duo,
                             seeds0=pre.get(i))
+            t = _serve(g, lanes[i])
             try:
-                act[i] = (g, g.send(None))
+                act[i] = (t, t.send(None))
             except StopIteration as e:
                 results[i] = e.value
         if spx is not None:
@@ -270,6 +357,13 @@ def align_batch(mp: MapParams, mi: MMIndex, reads: list,
     if sp is not None:
         stats.end(sp)
         stats.add("pipeline.replays", len(replayed))
+        stats.add("pipeline.lane_reads",
+                  sum(ln.memo is not None for ln in lanes))
+        stats.add("pipeline.ext_reqs", sum(ln.reqs for ln in lanes))
+        stats.add("pipeline.lane_hits", sum(ln.hits for ln in lanes))
+        stats.add("pipeline.lane_unused", sum(ln.unused() for ln in lanes))
+    # the memos go with the batch
+    del lanes
 
     sp = stats.begin("pipeline.post", base_qid) if stats.ON else None
     regs = [_postprocess(mp, results.get(i)) for i in range(len(reads))]

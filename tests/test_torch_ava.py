@@ -5,8 +5,8 @@ as a run of the cell is): every read has its lines, well formed, its whole
 self hit, only true overlaps on the right strand, paths that are the best
 under the linear gap model between any two of their points, an index that
 holds exactly the reads' minimizers, and a line for every true overlap of
->= 1 kb; the PAF writer's io.format spans and the pipeline.alns counter are
-recorded under MINIALIGN_STATS.
+>= 1 kb; the PAF writer's io.format spans, the pipeline.alns counter and
+the lane counters are recorded under MINIALIGN_STATS.
 
 The size is the CPU's: the plain fill runs ~5 s a round of the engine
 here, so three reads of ~1.15 kb on a 1.35 kb genome, every pair
@@ -122,6 +122,17 @@ def test_paf_format_spans_and_alignment_counter(overlap):
     assert rec["counters"]["pipeline.reads"] == len(pool)
     assert rec["counters"]["pipeline.alns"] == n_lines == sum(
         len(r.alns) for r in regs.values() if r is not None)
+
+
+def test_overlapping_reads_are_laned_and_answered_from_the_memo(overlap):
+    """Each read chains on itself and on the reads that overlap it, so its
+    chains fall on two or more targets and run as lanes; the passes'
+    requests are answered from the lane memo (MINIALIGN_STATS counters)."""
+    pool, _, _, _, rec = overlap
+    c = rec["counters"]
+    assert c["pipeline.lane_reads"] == len(pool)
+    assert 0 < c["pipeline.lane_hits"] <= c["pipeline.ext_reqs"]
+    assert c["pipeline.lane_unused"] >= 0
 
 
 def test_read_map_places_every_kept_base():

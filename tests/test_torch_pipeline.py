@@ -192,7 +192,7 @@ def test_a_read_replayed_twice_counts_once(monkeypatch):
     runs = []
 
     def extend_read(mp, mi, codes, qid, qidx=None, tbuf=None, duo=None,
-                    seeds0=None):
+                    seeds0=None, lanes=None):
         fired = spec[qid] if tbuf["spec"] else first[qid] >= tbuf["rlen"]
         if not tbuf["spec"] and qid:
             runs.append(qid)

@@ -6,7 +6,7 @@ self time and its children's; off, nothing is recorded and the recorder
 allocates nothing; on and off give the same Regs and SAM bytes; two
 scheduler threads keep a stack each; a torch.profiler turns it on and
 carries its clock anchors; MINIALIGN_STATS prints the launch, span and
-counter lines at exit."""
+counter lines at exit, the lane counters among them."""
 
 import dataclasses
 import io
@@ -379,3 +379,8 @@ def test_minialign_stats_prints_launch_span_and_counter_lines(tmp_path):
     assert counters["pipeline.reads"] == 3
     assert counters["pipeline.replays"] == 0
     assert counters["engine.rounds"] >= 1
+    # one reference: no read is laned, and every request goes to the engine
+    assert counters["pipeline.ext_reqs"] >= 3
+    assert counters["pipeline.lane_reads"] == 0
+    assert counters["pipeline.lane_hits"] == 0
+    assert counters["pipeline.lane_unused"] == 0
